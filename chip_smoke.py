@@ -15,6 +15,13 @@ nodes x 8 resources):
      20,000 specs in 64 classes, every grant committed, a delta tick,
      targets checked against a CPU-device solver on a copy of the view;
 
+the tick's other consumers on the same node shapes: ``solve_bundles``
+and ``pack_bundles_kernel`` for a placement group of 256 bundles under
+the four strategies (and STRICT_PACK for 8), each assignment validated
+and each solve bit-equal to ``device="cpu"``; and one sinkhorn tick
+(``mode="sinkhorn"``) of the bench problem, capacity and counts held and
+bit-equal to ``device="cpu"``; ms per call of each;
+
 and the transformer's forward pass (``Transformer``) at the width of
 ``bench_model.py``'s single-chip model (vocab 32,000, d_model 1024, 16
 heads, d_ff 4096; ``ray_tpu_torch.models.bench``):
@@ -27,6 +34,12 @@ heads, d_ff 4096; ``ray_tpu_torch.models.bench``):
       of the same weights, and the evaluation loss on uniform tokens
       within 0.1 of its expected value at this init,
       ln 32,000 + 0.02**2 * 1024 / 2;
+  M3. the same model with the switch-MoE FFN (``MOE_CONFIG``: 8 experts,
+      capacity 1.25) in bf16 at 8 x 1024: ms per forward, tokens/s,
+      finite logits, 8 flash launches per forward, the share of tokens
+      dropped at capacity, one sequence's logits within 5% relative RMS
+      of a float32 CPU forward of the same weights (with the count of its
+      tokens routed to another expert there);
 
 the backward kernel of flash attention against its plain version (f32
 and bf16, D 64, 96, 128 and 256, causal and not, L 128 and 1024, a
@@ -39,12 +52,16 @@ each timed beside its bound and SDPA's backward; and the train step
   T1. 2 layers at full width, float32, batch 2 x 256: 3 steps on the card
       against 3 on ``device="cpu"`` from the same weights: loss,
       grad_norm and every parameter after each step;
+  T3-f32. the same at ``MOE_CONFIG``'s width (2 layers, 8 experts);
   T2. ``bench_model.py``'s config and batch (8 layers, bf16, remat,
       tokens [8, 1025] from default_rng(0)), nothing cut: 1 warm-up and
       10 timed steps: ms per step, tokens/s, TFLOP/s by its accounting,
       peak memory, the first loss within 0.1 of the init loss, a lower
       loss after the run, 16 forward and 8 backward flash launches per
-      step, a finite grad_norm at every step.
+      step, a finite grad_norm at every step;
+  T3. the same at ``MOE_CONFIG``, nothing cut, TFLOP/s by
+      ``moe_train_flops``, the first loss within 0.1 of the init loss
+      plus 0.01 times the auxiliary of a forward before the first step.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -368,6 +385,122 @@ def phase_runtime(torch, cf, tb, tres, tpolicy, sb):
     return launches, tick_ms
 
 
+# -- the tick's other consumers: bundles and sinkhorn ------------------------
+
+STRATEGIES = ("PACK", "SPREAD", "STRICT_PACK", "STRICT_SPREAD")
+
+
+def _timed_calls(fn, reps):
+    """Host ms per call of ``fn`` (it returns host arrays, so each call
+    ends synchronised) over ``reps`` calls after one warm-up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_bundles(tb, tbp, tres, sb):
+    """``BatchSolver.solve_bundles`` and ``pack_bundles_kernel`` for a
+    placement group of 256 bundles (a 256-worker job, one bundle a
+    worker, demands from the seed over the bench's columns) on a
+    10,000-node view of the bench's node shapes, under each strategy;
+    STRICT_PACK, whose composite of 256 bundles fits no node, also for a
+    group of 8.  Each solve bit-equal to ``device="cpu"``, each
+    assignment validated on the host."""
+    rng = np.random.default_rng(11)
+    avail, total, _, _, _, _ = sb.build_problem(rng)
+    names = ["CPU", "memory", "TPU", "GPU"] + [
+        f"custom_{r}" for r in range(4, total.shape[1])]
+    view = _view_from(tres, names, total, avail)
+
+    def group(n):
+        cpu = rng.choice([1.0, 2.0, 4.0], n)
+        mem = rng.choice([2.0, 4.0, 8.0, 16.0], n)
+        tpu = np.where(rng.random(n) < 0.125, 1.0, 0.0)
+        return [tres.ResourceRequest(
+            {"CPU": c, "memory": m, **({"TPU": t} if t else {})})
+            for c, m, t in zip(cpu, mem, tpu)]
+
+    groups = {256: group(256), 8: group(8)}
+    node_ids, total_v, avail_v, _ = view.snapshot()
+    results = {}
+    for strategy in STRATEGIES:
+        for n in ((256, 8) if strategy == "STRICT_PACK" else (256,)):
+            bundles = groups[n]
+            _, reqs = tbp.device_rows(bundles, strategy)
+            demand = view.demand_matrix(reqs)
+            demand = np.pad(demand, ((0, 0), (0, total_v.shape[1] -
+                                              demand.shape[1])))
+            card = tb.BatchSolver(device="cuda")
+            got = card.solve_bundles(avail_v, total_v, demand, strategy)
+            want = tb.BatchSolver(device="cpu").solve_bundles(
+                avail_v, total_v, demand, strategy)
+            if not (np.array_equal(got[0], want[0]) and
+                    np.array_equal(got[1], want[1])):
+                raise AssertionError(f"solve_bundles {strategy} x {n} on the "
+                                     "card differs from device='cpu'")
+            ms = _timed_calls(lambda: card.solve_bundles(
+                avail_v, total_v, demand, strategy), 3)
+            assignment = tbp.pack_bundles_kernel(view, bundles, strategy,
+                                                 device="cuda")
+            fits = strategy != "STRICT_PACK" or n == 8
+            if fits:
+                if assignment is None or not tbp.validate_assignment(
+                        view, bundles, assignment, strategy, set()):
+                    raise AssertionError(f"{strategy} x {n}: no valid "
+                                         f"assignment ({assignment})")
+                used = len(set(assignment))
+            else:
+                if assignment is not None or got[1].any() or \
+                        tbp._pack_bundles_greedy(view, bundles,
+                                                 strategy) is not None:
+                    raise AssertionError(f"{strategy} x {n} should fit "
+                                         "no node")
+                used = 0
+            results[f"{strategy} x {n}"] = ms
+            log(f"[bundles] {strategy} x {n} bundles on {len(node_ids)} "
+                f"nodes: {ms:.2f} ms per solve_bundles call, node_idx and ok "
+                f"bit-equal to device='cpu'; "
+                + (f"assignment valid, on {used} distinct nodes" if fits else
+                   "infeasible on the card, the CPU and the greedy solve"))
+    return results
+
+
+def phase_sinkhorn(tb, sb):
+    """``BatchSolver(mode="sinkhorn").solve_matrices`` on the bench
+    problem (256 classes x 10,000 nodes x 8 resources, seed 42), one
+    tick: capacity and counts held on the host, bit-equal to
+    ``device="cpu"``."""
+    avail, total, demand, counts, an, ac = sb.build_problem(
+        np.random.default_rng(sb.SEED))
+    card = tb.BatchSolver(mode="sinkhorn", device="cuda")
+    got = card.solve_matrices(avail, total, demand, counts, an, ac)
+    t0 = time.perf_counter()
+    want = tb.BatchSolver(mode="sinkhorn", device="cpu").solve_matrices(
+        avail, total, demand, counts, an, ac)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(got, want):
+        raise AssertionError(f"sinkhorn allocations differ from "
+                             f"device='cpu' in {int((got != want).sum())} "
+                             "entries")
+    usage = got.T.astype(np.float64) @ demand.astype(np.float64)
+    if not (usage <= avail.astype(np.float64) + 1e-3).all():
+        raise AssertionError("sinkhorn exceeds a node's availability")
+    if not (got.sum(axis=1) <= counts).all() or got.sum() <= 0:
+        raise AssertionError("sinkhorn exceeds a class's count or places "
+                             "nothing")
+    ms = _timed_calls(lambda: card.solve_matrices(
+        avail, total, demand, counts, an, ac), 3)
+    log(f"[sinkhorn] {demand.shape[0]} classes x {avail.shape[0]} nodes x "
+        f"{avail.shape[1]} resources, {card.sinkhorn_iters} iterations: "
+        f"{ms:.2f} ms per tick (device='cpu' {cpu_ms:.0f} ms), "
+        f"{int(got.sum())} of {int(counts.sum())} tasks placed on "
+        f"{int((got.sum(axis=0) > 0).sum())} nodes; usage within "
+        f"availability, rows within counts, bit-equal to device='cpu'")
+    return ms
+
+
 # -- the transformer's forward pass ------------------------------------------
 
 # Kernel against plain version.  float32: both sum in float32 in other
@@ -535,12 +668,7 @@ def phase_model_bf16(torch, tt, fa, mb):
     # Sequence 0 through a float32 forward of the same (bf16-valued)
     # weights on the CPU, whose attention is full_attention, not the
     # kernel.
-    def f32_cpu(t):
-        return t.float().cpu()
-
-    params32 = {name: ({k: f32_cpu(t) for k, t in v.items()}
-                       if isinstance(v, dict) else f32_cpu(v))
-                for name, v in model.params().items()}
+    params32 = _tree_to(model.params(), "cpu", torch.float32)
     t0 = time.perf_counter()
     want = tt.forward(params32, inputs[:1].cpu(),
                       dataclasses.replace(cfg, dtype=torch.float32))
@@ -572,6 +700,116 @@ def phase_model_bf16(torch, tt, fa, mb):
         f"{expected:.4f} = ln {cfg.vocab_size} + {s2 / 2:.4f}); "
         f"flash_attention launches={launches} in {forwards} forwards")
     return launches, ms, tok_s, rel
+
+
+class RouteLog:
+    """Records the router's decisions of every ``moe_ffn`` call while on:
+    ``moe.route`` wrapped, each call's (choice, slot, capacity) kept."""
+
+    def __init__(self, tm):
+        self.tm, self.real, self.calls = tm, tm.route, []
+
+    def __enter__(self):
+        def route(xt, wr, cap):
+            probs, choice, slot = self.real(xt, wr, cap)
+            self.calls.append((choice.cpu(), slot.cpu(), cap))
+            return probs, choice, slot
+        self.tm.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.tm.route = self.real
+
+
+def phase_moe_forward(torch, tt, tm, fa, mb):
+    """M3: the switch-MoE model (``MOE_CONFIG``: 8 experts at capacity
+    1.25) in bf16 at batch 8 x 1024, one sequence held against a float32
+    forward on the CPU."""
+    cfg = mb.MOE_CONFIG
+    B, S, L, E = mb.BATCH, mb.SEQ, cfg.n_layers, cfg.moe_experts
+    model, tokens = mb.make("cuda", cfg=cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    inputs = tokens[:, :-1]
+    warmup, reps = 2, 10
+    fa.flash_attention.launches = 0
+    with torch.inference_mode():
+        for _ in range(warmup):
+            logits = model(inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            logits = model(inputs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        with RouteLog(tm) as card_routes:
+            logits = model(inputs)
+        finite = bool(torch.isfinite(logits).all())
+    launches = fa.flash_attention.launches
+    forwards = warmup + reps + 1
+    if launches != L * forwards:
+        raise AssertionError(f"flash_attention launched {launches} times "
+                             f"in {forwards} MoE forwards, expected {L} per "
+                             "forward")
+    if not finite or tuple(logits.shape) != (B, S, cfg.vocab_size):
+        raise AssertionError(f"bad MoE logits: shape "
+                             f"{tuple(logits.shape)}, finite={finite}")
+    if len(card_routes.calls) != L:
+        raise AssertionError(f"{len(card_routes.calls)} router calls in one "
+                             f"forward, expected {L}")
+    dropped = [int((slot == E * cap).sum()) for _, slot, cap
+               in card_routes.calls]
+    drop_share = sum(dropped) / (L * B * S)
+    # Sequence 0 through a float32 forward of the same (bf16-valued)
+    # weights on the CPU.  Its tokens come first in the batch's token
+    # order, so at the batch's capacity (1,280 slots an expert) none of
+    # them is dropped; alone (1,024 tokens) it would get 160 slots an
+    # expert.  The CPU run keeps the batch's capacity: the capacity
+    # factor times B.
+    params32 = _tree_to(model.params(), "cpu", torch.float32)
+    cfg32 = dataclasses.replace(
+        cfg, dtype=torch.float32,
+        moe_capacity_factor=cfg.moe_capacity_factor * B)
+    t0 = time.perf_counter()
+    with RouteLog(tm) as cpu_routes, torch.no_grad():
+        want = tt.forward(params32, inputs[:1].cpu(), cfg32)
+    cpu_s = time.perf_counter() - t0
+    del params32
+    if any(cap != cpu_routes.calls[0][2] for _, _, cap in card_routes.calls):
+        raise AssertionError("the CPU run's capacity differs from the "
+                             "card's")
+    # Tokens of sequence 0 whose expert differs between the two runs, in
+    # any layer: the router's float32 softmax sees bf16 activations on the
+    # card and float32 ones here, so near-ties go either way.
+    flips = torch.zeros(S, dtype=torch.bool)
+    for (c_card, _, _), (c_cpu, _, _) in zip(card_routes.calls,
+                                             cpu_routes.calls):
+        flips |= c_card[:S] != c_cpu
+    flip_pairs = sum(int((c[:S] != w).sum()) for (c, _, _), (w, _, _)
+                     in zip(card_routes.calls, cpu_routes.calls))
+    got = logits[:1].float().cpu()
+    rel = float((got - want).norm() / want.norm())
+    max_diff = float((got - want).abs().max())
+    if not rel <= MODEL_BF16_REL_TOL:
+        raise AssertionError(f"MoE bf16 logits of sequence 0 are {rel} "
+                             f"(relative RMS) off a float32 forward of the "
+                             f"same weights, over {MODEL_BF16_REL_TOL} "
+                             f"({int(flips.sum())} of its {S} tokens routed "
+                             f"differently in some layer)")
+    tok_s = B * S / (ms / 1e3)
+    log(f"[moe forward] {n_params / 1e6:.1f}M params, {L} layers, {E} "
+        f"experts at capacity {cfg.moe_capacity_factor} "
+        f"({card_routes.calls[0][2]} slots each), batch {B} x {S}: "
+        f"{ms:.3f} ms per forward, {tok_s:.0f} tokens/s; logits finite; "
+        f"dropped at capacity {drop_share:.4f} of tokens (per layer "
+        f"{dropped}); sequence 0 within {MODEL_BF16_REL_TOL} of a float32 "
+        f"CPU forward (relative RMS {rel}, max |diff| {max_diff}; "
+        f"{int(flips.sum())} of {S} tokens routed to another expert in some "
+        f"layer, {flip_pairs} (token, layer) pairs; CPU forward "
+        f"{cpu_s:.1f} s); flash_attention launches={launches} in "
+        f"{forwards} forwards")
+    return {"launches": launches, "ms": ms, "tokens_per_s": tok_s,
+            "rel": rel, "drop_share": drop_share,
+            "flipped_tokens": int(flips.sum())}
 
 
 # -- the backward kernel and the train step ----------------------------------
@@ -717,10 +955,10 @@ def phase_flash_bwd(torch, fa, mb):
     return d64, d128
 
 
-def _tree_to(tree, device):
+def _tree_to(tree, device, dtype=None):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.detach().to(device)
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    return tree.detach().to(device=device, dtype=dtype)
 
 
 # T1's tolerances, card against CPU, both float32 (cuBLAS and the kernels
@@ -740,14 +978,14 @@ TRAIN_F32_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grad_atol": 1e-5,
                  "share": 1e-4, "max": 1e-3}
 
 
-def phase_train_f32(torch, tt, fa, mb):
-    """T1: full width, 2 layers, float32, remat: the gradients of the
-    first step, then 3 train steps, on the card (through both flash
-    kernels) against the CPU (through full_attention) from the same
-    weights."""
+def phase_train_f32(torch, tt, fa, mb, base, name="train f32"):
+    """T1 (``base`` = ``CONFIG``) and T3-f32 (``MOE_CONFIG``): full width,
+    2 layers, float32, remat: the gradients of the first step, then 3
+    train steps, on the card (through both flash kernels) against the CPU
+    (through full_attention) from the same weights."""
     from ray_tpu_torch.models.optim import AdamW, leaves
     tol = TRAIN_F32_TOL
-    cfg = dataclasses.replace(mb.CONFIG, n_layers=2, dtype=torch.float32,
+    cfg = dataclasses.replace(base, n_layers=2, dtype=torch.float32,
                               remat=True)
     params = tt.init_params(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
@@ -810,9 +1048,9 @@ def phase_train_f32(torch, tt, fa, mb):
     launches = (fa.flash_attention.launches - fwd,
                 fa.flash_attention_backward.launches - bwd)
     if launches != (8 * cfg.n_layers, 4 * cfg.n_layers):
-        raise AssertionError(f"T1 flash launches {launches}, expected "
+        raise AssertionError(f"{name} flash launches {launches}, expected "
                              f"{(8 * cfg.n_layers, 4 * cfg.n_layers)}")
-    log(f"[train f32] 2 layers at full width, batch 2 x 256: first-step "
+    log(f"[{name}] 2 layers at full width, batch 2 x 256: first-step "
         f"gradients within tolerance (largest |diff| {grad_err} of the "
         f"tensor's scale); 3 steps: loss, grad_norm and parameters within "
         f"{tol} of device='cpu' (max |loss diff| {worst['loss']}, grad_norm "
@@ -823,14 +1061,23 @@ def phase_train_f32(torch, tt, fa, mb):
     return worst
 
 
-def phase_train_bf16(torch, tt, fa, mb):
-    """T2, the training path: bench_model.py's config and batch, remat,
-    1 warm-up and 10 timed steps."""
-    cfg = mb.CONFIG
+def phase_train_bf16(torch, tt, fa, mb, cfg, flops, accounting, name):
+    """T2 (``cfg`` = ``CONFIG``, ``flops(n_params)`` by ``train_flops``)
+    and T3 (``MOE_CONFIG``, by ``moe_train_flops``), the training path:
+    bench_model.py's batch, remat, 1 warm-up and 10 timed steps.  The
+    first loss is held to the init loss plus, with experts,
+    ``moe_aux_coeff`` times the auxiliary of a forward before the
+    first step."""
     B, S = mb.BATCH, mb.SEQ
     torch.cuda.reset_peak_memory_stats()
-    state, step, batch = mb.make_train("cuda")
+    state, step, batch = mb.make_train("cuda", cfg=cfg)
     n_params = mb.n_params(state["params"])
+    step_flops = flops(n_params)
+    aux0 = 0.0
+    if cfg.moe_experts > 0:
+        with torch.no_grad():
+            aux0 = float(tt.forward_with_aux(
+                state["params"], batch["tokens"][:, :-1], cfg)[1])
     reps = mb.TRAIN_REPS
     fa.flash_attention.launches = 0
     fa.flash_attention_backward.launches = 0
@@ -855,12 +1102,13 @@ def phase_train_bf16(torch, tt, fa, mb):
                              f"expected {2 * cfg.n_layers} forward and "
                              f"{cfg.n_layers} backward per step")
     if routes["wgmma"] != launches[1]:
-        raise AssertionError(f"backward routes in T2: {routes}")
+        raise AssertionError(f"backward routes in {name}: {routes}")
     losses = [float(h["loss"]) for h in history]
     norms = [float(h["grad_norm"]) for h in history]
     with torch.no_grad():
         final = float(tt.loss_fn(state["params"], batch, cfg))
-    expected = math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+    expected = (math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2 +
+                cfg.moe_aux_coeff * aux0)
     if abs(losses[0] - expected) > 0.1:
         raise AssertionError(f"first loss {losses[0]} is not within 0.1 of "
                              f"the init loss {expected}")
@@ -871,13 +1119,15 @@ def phase_train_bf16(torch, tt, fa, mb):
         raise AssertionError(f"loss after {steps} steps {final} is not below "
                              f"the first {losses[0]}")
     tok_s = B * S / step_s
-    tflops = mb.train_flops(n_params) / step_s / 1e12
-    log(f"[train bf16] {n_params / 1e6:.1f}M params, {cfg.n_layers} layers, "
-        f"remat, batch {B} x {S}: {step_s * 1e3:.3f} ms per step, "
+    tflops = step_flops / step_s / 1e12
+    log(f"[{name}] {n_params / 1e6:.1f}M params, {cfg.n_layers} layers, "
+        f"{cfg.moe_experts} experts, remat, batch {B} x {S}: "
+        f"{step_s * 1e3:.3f} ms per step, "
         f"{tok_s:.0f} tokens/s, {tflops:.1f} TFLOP/s "
-        f"({mb.train_flops(n_params) / 1e12:.2f} TFLOP a step); peak memory "
-        f"{peak_gb:.2f} GB; loss {losses[0]:.4f} first (init "
-        f"{expected:.4f}), {losses[-1]:.4f} at the last step, {final:.4f} "
+        f"({step_flops / 1e12:.2f} TFLOP a step by {accounting}); peak "
+        f"memory {peak_gb:.2f} GB; loss {losses[0]:.4f} first (init "
+        f"{expected:.4f}, aux {aux0:.4f}), {losses[-1]:.4f} at the last "
+        f"step, {final:.4f} "
         f"after {steps}; grad_norm {norms[0]:.4f} .. {norms[-1]:.4f}; flash "
         f"launches forward {launches[0]}, backward {launches[1]} in {steps} "
         f"steps (routes {routes})")
@@ -907,11 +1157,13 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}")
 
     from ray_tpu_torch.models import bench as mb
+    from ray_tpu_torch.models import moe as tm
     from ray_tpu_torch.models import transformer as tt
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import class_fill as cf
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
+    from ray_tpu_torch.scheduler import bundle_packing as tbp
     from ray_tpu_torch.scheduler import resources as tres
     from ray_tpu_torch.scheduler import torch_backend as tb
     for mod in list(sys.modules):
@@ -935,9 +1187,17 @@ def main() -> int:
     f = phase_flash(torch, fa, mb)
     err_f32 = phase_model_f32(torch, tt, fa, mb)
     launches_m, ms_fwd, tok_s, rel_bf16 = phase_model_bf16(torch, tt, fa, mb)
+    m3 = phase_moe_forward(torch, tt, tm, fa, mb)
+    bundle_ms = phase_bundles(tb, tbp, tres, sb)
+    sinkhorn_ms = phase_sinkhorn(tb, sb)
     fb, fb128 = phase_flash_bwd(torch, fa, mb)
-    t1 = phase_train_f32(torch, tt, fa, mb)
-    t2 = phase_train_bf16(torch, tt, fa, mb)
+    t1 = phase_train_f32(torch, tt, fa, mb, mb.CONFIG, "train f32")
+    t3f = phase_train_f32(torch, tt, fa, mb, mb.MOE_CONFIG, "moe train f32")
+    t2 = phase_train_bf16(torch, tt, fa, mb, mb.CONFIG, mb.train_flops,
+                          "train_flops", "train bf16")
+    t3 = phase_train_bf16(torch, tt, fa, mb, mb.MOE_CONFIG,
+                          lambda _: mb.moe_train_flops(), "moe_train_flops",
+                          "moe train bf16")
 
     kernels = [{
         "name": "class_fill",
@@ -957,7 +1217,8 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_attention.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:79",
-        "launches": launches_m + t2["launches"][0],
+        "launches": (launches_m + t2["launches"][0] + m3["launches"] +
+                     t3["launches"][0]),
         "max_abs_err": f["max_abs_err"],
         "ms": f["ms"],
         "plain_ms": f["plain_ms"],
@@ -972,7 +1233,7 @@ def main() -> int:
         "replaces": "none: JAX differentiates full_attention "
                     "(ray_tpu/ops/flash_attention.py:101-103)",
         "design": "wgmma+tma, one launch for dK/dV and dQ after delta's",
-        "launches": t2["launches"][1],
+        "launches": t2["launches"][1] + t3["launches"][1],
         "max_abs_err": fb["max_abs_err"],
         "ms": fb["ms"],
         "plain_ms": fb["plain_ms"],
@@ -996,11 +1257,28 @@ def main() -> int:
                     "train_loss_first": t2["loss_first"],
                     "train_loss_final": t2["loss_final"],
                     "train_f32_max_param_diff": t1["param"],
+                    "moe_forward_ms": m3["ms"],
+                    "moe_forward_tokens_per_s": m3["tokens_per_s"],
+                    "moe_forward_bf16_rel_err": m3["rel"],
+                    "moe_forward_drop_share": m3["drop_share"],
+                    "moe_forward_flipped_tokens": m3["flipped_tokens"],
+                    "moe_train_step_ms": t3["step_ms"],
+                    "moe_train_tokens_per_s": t3["tokens_per_s"],
+                    "moe_train_tflops": t3["tflops"],
+                    "moe_train_peak_gb": t3["peak_gb"],
+                    "moe_train_loss_first": t3["loss_first"],
+                    "moe_train_loss_final": t3["loss_final"],
+                    "moe_train_f32_max_param_diff": t3f["param"],
+                    "bundles_ms_per_call": bundle_ms,
+                    "sinkhorn_ms_per_tick": sinkhorn_ms,
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "forward": launches_m,
+                                 "moe_forward": m3["launches"],
                                  "train_forward": t2["launches"][0],
-                                 "train_backward": t2["launches"][1]}}))
+                                 "train_backward": t2["launches"][1],
+                                 "moe_train_forward": t3["launches"][0],
+                                 "moe_train_backward": t3["launches"][1]}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

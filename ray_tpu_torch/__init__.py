@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of ray_tpu: the batched scheduling tick and the
-transformer's forward pass.
+"""PyTorch/CUDA port of ray_tpu: the batched scheduling tick and its
+placement-group and sinkhorn solves, and the transformer (dense or
+switch-MoE) served and trained on one device.
 
 The JAX package ``ray_tpu`` is the reference; this package imports
 neither it nor JAX.  Its kernels are hand-written for Hopper (H100) and

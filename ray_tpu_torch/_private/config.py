@@ -1,8 +1,9 @@
-"""The scheduler knobs the batched tick reads.
+"""The scheduler knobs the batched tick and placement-group packing read.
 
-A copy of the four scheduler fields of ``ray_tpu._private.config.Config``
-with the same names and defaults.  The rest of that config belongs to the
-runtime, which this package does not port yet.
+A copy of the four scheduler fields and the two placement-group packing
+fields of ``ray_tpu._private.config.Config`` with the same names and
+defaults.  The rest of that config belongs to the runtime, which this
+package does not port yet.
 """
 
 from __future__ import annotations
@@ -22,6 +23,12 @@ class Config:
     #: Arg-locality cost weight (negative cost on nodes holding the
     #: class's argument bytes).
     scheduler_locality_weight: float = 0.5
+    #: Placement-group bundle packing backend: "auto" routes through the
+    #: device bundle solve when the cluster has at least
+    #: pg_kernel_min_nodes nodes (greedy numpy below that), "force"
+    #: always, "off" never.
+    pg_kernel_backend: str = "auto"
+    pg_kernel_min_nodes: int = 32
 
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-"""Models of the port: the flagship transformer's forward pass."""
+"""Models of the port: the flagship transformer (dense or switch-MoE,
+``moe``), its forward pass and train step."""
 
 from ray_tpu_torch.models.transformer import (  # noqa: F401
     Transformer, TransformerConfig, forward, init_params, loss_fn)

@@ -2,8 +2,9 @@
 
 The JAX package's ``init_params`` tree, handed over as nested dicts of
 numpy arrays (e.g. ``jax.tree.map(np.asarray, params)``), becomes the
-port's tree of tensors: norm weights (``ln*``) in float32, every other
-leaf in ``cfg.dtype``.  JAX's bfloat16 leaves pass through
+port's tree of tensors, nested as it is (``layers["moe"]`` of an MoE
+model too): norm weights (``ln*``) in float32, every other leaf in
+``cfg.dtype``.  JAX's bfloat16 leaves pass through
 ``np.asarray(x, np.float32)``, which needs no ``ml_dtypes`` import here;
 bf16 -> f32 -> bf16 is lossless, so both packages compute on the same
 weights.  ``train_state_from_numpy`` carries a whole train state
@@ -18,13 +19,11 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private.device import resolve_device
-from ray_tpu_torch.models.transformer import (TransformerConfig,
-                                              _dense_only, train_state)
+from ray_tpu_torch.models.transformer import TransformerConfig, train_state
 
 
 def params_from_numpy(tree: Dict, cfg: TransformerConfig,
                       device=None) -> Dict:
-    _dense_only(cfg)
     dev = resolve_device(device)
 
     def convert(name, x):

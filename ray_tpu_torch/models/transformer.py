@@ -8,14 +8,15 @@ Hopper kernels on the card, forward and backward) and dense SwiGLU FFN.
 ``lax.scan`` over the layer axis becomes a Python loop; with ``remat``
 and grad enabled each layer runs under
 ``torch.utils.checkpoint.checkpoint``, as ``jax.checkpoint`` wraps the
-scan body.  Plain matrix products stay ``torch.einsum``, as the JAX
-package leaves them to XLA.  ``make_train_state``/``make_train_step``
-train with the port's ``AdamW`` (``models/optim.py``: optax's
-arithmetic).
+scan body.  With ``moe_experts > 0`` the FFN is the switch-MoE of
+``models/moe.py`` (``layers["moe"]``, a nested subtree) and ``loss_fn``
+adds its load-balance auxiliary.  Plain matrix products stay
+``torch.einsum``, as the JAX package leaves them to XLA.
+``make_train_state``/``make_train_step`` train with the port's ``AdamW``
+(``models/optim.py``: optax's arithmetic).
 
-Not ported yet, each raising ``NotImplementedError``: the switch-MoE FFN
-(``moe_experts > 0``) and a device mesh (tensor/context parallelism, ring
-attention, ``param_specs``).
+Not ported yet, raising ``NotImplementedError``: a device mesh
+(tensor/context/expert parallelism, ring attention, ``param_specs``).
 """
 
 from __future__ import annotations
@@ -28,14 +29,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch.models import moe
 from ray_tpu_torch.models.optim import (AdamW, global_norm, leaves,
                                         tree_like)
 from ray_tpu_torch.ops.flash_attention import \
     attention as flash_or_ref_attention
 
-_LATER = "is not ported to ray_tpu_torch yet; it belongs to the slice that"
-_MOE_SLICE = f"{_LATER} ports the switch-MoE FFN (models/moe.py)"
-_MESH_SLICE = (f"{_LATER} ports the device mesh, ring attention and the "
+_MESH_SLICE = ("is not ported to ray_tpu_torch yet; it belongs to the slice "
+               "that ports the device mesh, ring attention and the "
                "pipeline over torch.distributed")
 
 
@@ -52,7 +53,8 @@ class TransformerConfig:
     remat: bool = True
     #: Use ring attention over the "sp" mesh axis when its size > 1.
     context_parallel: bool = True
-    #: >0 replaces the dense FFN with a switch-MoE of this many experts.
+    #: >0 replaces the dense FFN with a switch-MoE of this many experts
+    #: (models/moe.py).
     moe_experts: int = 0
     moe_capacity_factor: float = 1.25
     #: Switch load-balance auxiliary loss weight.
@@ -61,11 +63,6 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
-
-
-def _dense_only(cfg: TransformerConfig) -> None:
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(f"moe_experts > 0 {_MOE_SLICE}")
 
 
 def _no_mesh(mesh) -> None:
@@ -77,8 +74,9 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
                 device=None) -> Dict:
     """The reference's tree and shapes: normal(0.02) weights drawn in
     float32 from ``generator`` (on its own device) and cast to
-    ``cfg.dtype``; the norms' weights ones in float32."""
-    _dense_only(cfg)
+    ``cfg.dtype``; the norms' weights ones in float32.  With
+    ``moe_experts > 0``, ``layers["moe"]`` (``moe.init_moe_params``)
+    takes the place of ``w1``/``w3``/``w2``."""
     dev = resolve_device(device)
     d, h, dh, f, nl = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
                        cfg.n_layers)
@@ -98,10 +96,16 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
         "wk": normal((nl, d, h, dh)),
         "wv": normal((nl, d, h, dh)),
         "wo": normal((nl, h, dh, d)),
-        "w1": normal((nl, d, f)),
-        "w3": normal((nl, d, f)),
-        "w2": normal((nl, f, d)),
     }
+    if cfg.moe_experts > 0:
+        layers["moe"] = moe.init_moe_params(generator, nl, d, f,
+                                            cfg.moe_experts, cfg.dtype, dev)
+    else:
+        layers.update({
+            "w1": normal((nl, d, f)),
+            "w3": normal((nl, d, f)),
+            "w2": normal((nl, f, d)),
+        })
     return {
         "embed": normal((cfg.vocab_size, d)),
         "layers": layers,
@@ -141,7 +145,6 @@ def apply_layer(x, lp, positions, cfg: TransformerConfig, mesh=None):
     """One transformer block on [B, S, D] activations with this layer's
     params ``lp``; returns (x, moe_aux)."""
     _no_mesh(mesh)
-    _dense_only(cfg)
     h = _rms_norm(x, lp["ln1"])
     q = torch.einsum("bsd,dhk->bshk", h, lp["wq"])
     k = torch.einsum("bsd,dhk->bshk", h, lp["wk"])
@@ -151,6 +154,11 @@ def apply_layer(x, lp, positions, cfg: TransformerConfig, mesh=None):
     o = flash_or_ref_attention(q, k, v, causal=True)
     x = x + torch.einsum("bshk,hkd->bsd", o, lp["wo"])
     h = _rms_norm(x, lp["ln2"])
+    if cfg.moe_experts > 0:
+        x = x + moe.moe_ffn(h, lp["moe"], cfg.moe_experts,
+                            cfg.moe_capacity_factor)
+        aux = moe.aux_load_balance_loss(h, lp["moe"]["wr"], cfg.moe_experts)
+        return x, aux
     gate = torch.nn.functional.silu(torch.einsum("bsd,df->bsf", h, lp["w1"]))
     up = torch.einsum("bsd,df->bsf", h, lp["w3"])
     x = x + torch.einsum("bsf,fd->bsd", gate * up, lp["w2"])
@@ -169,9 +177,10 @@ def forward_with_aux(params: Dict, tokens: torch.Tensor,
     """Like :func:`forward` but also returns the mean per-layer MoE
     load-balance auxiliary (0 for dense models).  With ``cfg.remat`` and
     grad enabled each layer is rematerialised in the backward pass
-    (``checkpoint``, non-reentrant): only its input is kept."""
+    (``checkpoint``, non-reentrant): only its input is kept.  The layer's
+    slices of the ``layers`` tree (the ``moe`` subtree too) enter the
+    checkpoint as flat tensor arguments, in ``optim.leaves`` order."""
     _no_mesh(mesh)
-    _dense_only(cfg)
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device)
     B, S = tokens.shape
@@ -180,14 +189,17 @@ def forward_with_aux(params: Dict, tokens: torch.Tensor,
                              device=embed.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=embed.device)
     layers = params["layers"]
-    names = sorted(layers)
+    # One unbind per stacked tensor: its backward stacks the layers'
+    # gradients once, where indexing each layer would materialise a
+    # zero-filled full-size gradient per layer and sum them.
+    stacked = [t.unbind(0) for t in leaves(layers)]
 
     def layer(x, *weights):
-        return apply_layer(x, dict(zip(names, weights)), positions, cfg)
+        return apply_layer(x, tree_like(layers, weights), positions, cfg)
 
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(layers["ln1"].shape[0]):
-        weights = [layers[name][i] for name in names]
+        weights = [t[i] for t in stacked]
         if remat:
             x, layer_aux = checkpoint(layer, x, *weights, use_reentrant=False)
         else:
@@ -200,17 +212,21 @@ def forward_with_aux(params: Dict, tokens: torch.Tensor,
 
 def loss_fn(params: Dict, batch: Dict, cfg: TransformerConfig,
             mesh=None) -> torch.Tensor:
-    """Next-token cross entropy in float32, the training loss: under
-    autograd its gradient flows through the flash kernel's backward on
-    the card (``full_attention`` on the CPU).
+    """Next-token cross entropy in float32 (+ ``moe_aux_coeff`` times the
+    MoE load-balance auxiliary when experts are on), the training loss:
+    under autograd its gradient flows through the flash kernel's backward
+    on the card (``full_attention`` on the CPU).
     batch = {"tokens": [B, S+1] int}."""
     tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits, _aux = forward_with_aux(params, inputs, cfg, mesh)
+    logits, aux = forward_with_aux(params, inputs, cfg, mesh)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets[..., None].long()).squeeze(-1)
-    return torch.mean(logz - gold)
+    loss = torch.mean(logz - gold)
+    if cfg.moe_experts > 0 and cfg.moe_aux_coeff > 0:
+        loss = loss + cfg.moe_aux_coeff * aux
+    return loss
 
 
 def make_train_state(generator: torch.Generator, cfg: TransformerConfig,
@@ -273,7 +289,8 @@ class Transformer(nn.Module):
     """The model as a module, the port's entry point for the forward path.
 
     Holds the parameter tree of :func:`init_params` under the reference's
-    names (``embed``, ``layers.wq`` ..., ``ln_f``, ``lm_head``) on
+    names (``embed``, ``layers.wq`` ..., ``layers.moe.w1`` ..., ``ln_f``,
+    ``lm_head``; nested ``ParameterDict``s) on
     ``device`` (``None``: the card, raising without one).  ``params``
     (e.g. from ``convert.params_from_numpy``) replaces the random init.
     The parameters do not require grad: the module serves the forward
@@ -286,7 +303,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, params: Optional[Dict] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        _dense_only(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         if params is None:
@@ -295,17 +311,21 @@ class Transformer(nn.Module):
             params = init_params(generator, cfg, dev)
 
         def hold(t):
+            if isinstance(t, dict):
+                return nn.ParameterDict({k: hold(v) for k, v in t.items()})
             return nn.Parameter(t.to(dev), requires_grad=False)
 
         self.embed = hold(params["embed"])
-        self.layers = nn.ParameterDict(
-            {name: hold(t) for name, t in params["layers"].items()})
+        self.layers = hold(params["layers"])
         self.ln_f = hold(params["ln_f"])
         self.lm_head = hold(params["lm_head"])
 
     def params(self) -> Dict:
         """The parameter tree the functions of this module take."""
-        return {"embed": self.embed, "layers": dict(self.layers),
+        def tree(d):
+            return {k: tree(v) if isinstance(v, nn.ParameterDict) else v
+                    for k, v in d.items()}
+        return {"embed": self.embed, "layers": tree(self.layers),
                 "ln_f": self.ln_f, "lm_head": self.lm_head}
 
     def forward(self, tokens) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The batched scheduling tick in PyTorch, on the card.
 
-The counterpart of ``ray_tpu/scheduler/jax_backend.py`` (waterfill path).
+The counterpart of ``ray_tpu/scheduler/jax_backend.py``.
 One tick is
 
     demand[C, R] x counts[C] x avail[N, R] -> alloc[C, N]
@@ -29,6 +29,12 @@ Two entry points:
   * ``DeviceRuntimeSolver.solve`` — the raylet's per-tick dispatch path:
     world state resident between ticks, dirty rows written in place.
 
+The tick's other consumers: ``BatchSolver.solve_bundles`` (a placement
+group's bundles, ``_pack_bundles``; ``bundle_packing`` drives it) and
+``BatchSolver(mode="sinkhorn").solve_matrices`` (``_sinkhorn``, an
+entropic transport plan rounded exactly).  Both give the same bits on
+the card as on the CPU (see ``_sum_last``).
+
 Every entry point takes ``device=``: the card unless the caller passes
 ``"cpu"``, and an error when no card is present.
 """
@@ -54,11 +60,6 @@ _ROT_STRIDE = 977  # per-class rotation stride (prime)
 # multiplier per node, with an optional accelerator-class override.
 NODE_THROUGHPUT_LABEL = "ray_tpu.throughput"
 NODE_ACCEL_THROUGHPUT_LABEL = "ray_tpu.accel_throughput"
-
-_LATER_SLICE = ("is not ported to ray_tpu_torch yet; it belongs to the "
-                "slice that ports the tick's other consumers (bundles, "
-                "autoscaler, sinkhorn)")
-
 
 def _label_rate(labels: Dict, key: str, default: float = 1.0) -> float:
     try:
@@ -220,6 +221,158 @@ def _apply_rows(avail_t, idx, rows):
     return avail_t
 
 
+# The bundle and sinkhorn programs give the same bits on the card as on
+# the CPU: every floating-point step is one elementwise IEEE operation
+# (add, subtract, multiply, divide by a tensor, min, max, floor), each
+# rounded once on either device, and every sum runs in a fixed order.
+# Library reductions (sum, matmul, softmax) add in orders that differ
+# between devices, and torch.exp differs between them in the last bit.
+
+def _sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, left to right (the order of XLA's CPU
+    reduction over a short axis, so also bit-equal to ``jnp.sum``)."""
+    s = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        s = s + x[..., i]
+    return s
+
+
+def _sum_tree(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` in a fixed pairwise order: zero-padded to a power
+    of two, then halves added until one is left."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def _exp(z: torch.Tensor) -> torch.Tensor:
+    """exp of float32 ``z <= 0`` from elementwise IEEE operations
+    (Cephes' expf: n = round(z log2 e), a two-part reduction by ln 2, a
+    degree-7 polynomial, the exponent set from n's bits); 0 below -87,
+    where exp is under float32's smallest normal."""
+    x = torch.clamp_min(z, -87.0)
+    n = torch.floor(x * 1.44269504088896341 + 0.5)
+    x = x - n * 0.693359375
+    x = x + n * 2.12194440e-4
+    p = x * 1.9875691500e-4 + 1.3981999507e-3
+    for c in (8.3334519073e-3, 4.1665795894e-2, 1.6666665459e-1,
+              5.0000001201e-1):
+        p = p * x
+        p = p + c
+    y = p * (x * x)
+    y = y + x
+    y = y + 1.0
+    scale = torch.bitwise_left_shift(n.to(torch.int32) + 127, 23).view(
+        torch.float32)
+    return torch.where(z < -87.0, 0.0, y * scale)
+
+
+def _pack_bundles(avail, total, demand, excluded, used0, pack_w,
+                  strict_spread):
+    """Placement-group bundle -> node solve, ``_jit_pack_bundles``'s
+    scan over bundle rows carrying (availability, used nodes):
+    LeastResourceScorer best fit (the mean over demanded resources of
+    1 - leftover / have), ``pack_w`` on used nodes (PACK > 0, SPREAD
+    < 0), used nodes masked under STRICT_SPREAD, the first maximum.
+    Returns (node_idx [B] int64, ok [B] bool) on the device; padded
+    bundle rows (no demand) are no-ops, padded nodes never feasible."""
+    eps = 1e-6
+    node_ok = (total.amax(dim=1) > 0) & ~excluded
+    av, used = avail, used0
+    spread = strict_spread > 0
+    idx, oks = [], []
+    nodes = torch.arange(avail.shape[0], device=avail.device)
+    for b in range(demand.shape[0]):
+        d = demand[b]
+        demanded = d > 0
+        is_real = demanded.any()
+        feasible = torch.all(av + eps >= d[None, :], dim=1) & node_ok
+        feasible = torch.where(spread, feasible & ~used, feasible)
+        terms = torch.where(
+            demanded[None, :],
+            1.0 - (av - d[None, :]) / torch.clamp_min(av, 1.0), 0.0)
+        nd = torch.clamp_min(demanded.sum(dtype=torch.float32), 1.0)
+        sc = _sum_last(terms) / nd
+        sc = sc + pack_w * used.to(torch.float32)
+        sc = torch.where(feasible, sc, -_BIG)
+        best = torch.argmax(sc)
+        ok = is_real & (sc[best] > -_BIG / 2)
+        hot = (nodes == best) & ok
+        av = av - torch.where(hot[:, None], d[None, :], 0.0)
+        used = used | hot
+        idx.append(best)
+        oks.append(ok)
+    return torch.stack(idx), torch.stack(oks)
+
+
+def _sinkhorn(avail, total, demand, counts, accel_node, accel_class,
+              spread_threshold, tau, iters: int):
+    """``_jit_sinkhorn``: a masked-softmax transport plan of classes over
+    nodes (row targets ``counts``, utilization plus the accelerator
+    penalty as the cost, temperature ``tau``), ``iters`` rounds of
+    scaling each node's column to its availability and each class's row
+    back toward its count, then an exact rounding pass that fills each
+    class's nodes in descending plan order (stable) against the running
+    availability.  Returns (allocs [C, N], avail after [N, R])."""
+    eps = 1e-6
+    demanded = demand > 0                                  # [C, R]
+    ratios = torch.where(demanded[:, None, :],
+                         avail[None, :, :] /
+                         torch.clamp_min(demand[:, None, :], eps), _BIG)
+    cap = torch.floor(ratios.amin(dim=2) + eps)            # [C, N]
+    cap = torch.minimum(cap, counts[:, None])
+    feasible = cap > 0
+    util = torch.where(total > 0, (total - avail) /
+                       torch.clamp_min(total, eps), 0.0)   # [N, R]
+    score = _sum_last(util[None, :, :] *
+                      demanded[:, None, :].to(torch.float32))   # [C, N]
+    score = score / torch.clamp_min(
+        demanded.sum(dim=1, dtype=torch.float32)[:, None], 1.0)
+    score = torch.where(score < spread_threshold, 0.0, score)
+    score = score + (accel_node[None, :] &
+                     ~accel_class[:, None]).to(torch.float32)
+    logits = torch.where(feasible, -score / tau, -_BIG)
+    e = _exp(logits - logits.amax(dim=1, keepdim=True))
+    plan = e / _sum_tree(e, 1)[:, None] * counts[:, None]
+    for _ in range(iters):
+        usage = _sum_tree(plan[:, :, None] * demand[:, None, :], 0)
+        factor = torch.where(
+            usage > eps,
+            torch.clamp(avail / torch.clamp_min(usage, eps), 0.0, 1.0),
+            1.0).amin(dim=1)                               # [N]
+        plan = plan * factor[None, :]
+        row = _sum_tree(plan, 1)[:, None]
+        plan = plan * torch.where(
+            row > eps,
+            torch.clamp_max(counts[:, None] / torch.clamp_min(row, eps),
+                            _BIG), 0.0)
+        plan = torch.minimum(plan, cap)
+    # Round: per class, fill nodes in plan-descending order against the
+    # running availability.
+    av = avail
+    allocs = []
+    for c in range(demand.shape[0]):
+        d, cnt = demand[c], counts[c]
+        ratio = torch.where((d > 0)[None, :],
+                            av / torch.clamp_min(d[None, :], eps), _BIG)
+        capn = torch.minimum(torch.clamp_min(
+            torch.floor(ratio.amin(dim=1) + eps), 0.0), cnt)
+        order = torch.argsort(-plan[c], stable=True)
+        cap_sorted = capn[order]
+        prefix = torch.cumsum(cap_sorted, dim=0) - cap_sorted
+        take = torch.minimum(torch.clamp_min(cnt - prefix, 0.0), cap_sorted)
+        alloc = torch.zeros_like(capn).scatter(0, order, take)
+        av = av - alloc[:, None] * d[None, :]
+        allocs.append(alloc)
+    return torch.stack(allocs), av
+
+
 # ---------------------------------------------------------------------------
 # numpy oracles (golden references for the tests).
 # ---------------------------------------------------------------------------
@@ -365,10 +518,12 @@ class BatchSolver:
     """Groups pending specs by scheduling class, runs the device solve,
     expands the allocation back to per-task node targets."""
 
-    def __init__(self, mode: Optional[str] = None, device=None):
+    def __init__(self, mode: Optional[str] = None, sinkhorn_iters: int = 8,
+                 device=None):
         self.mode = mode or "waterfill"
-        if self.mode != "waterfill":
-            raise NotImplementedError(f"mode={self.mode!r} {_LATER_SLICE}")
+        if self.mode not in ("waterfill", "sinkhorn"):
+            raise ValueError(f"unknown solver mode {self.mode!r}")
+        self.sinkhorn_iters = sinkhorn_iters
         self.device = resolve_device(device)
         self._device_state = None  # set by prepare_device
 
@@ -385,7 +540,9 @@ class BatchSolver:
 
         ``cost`` [C, N] adds per-(class, node) score offsets (negative =
         preferred); ``invert_util`` + ``zero_shifts`` select pack mode
-        (most-utilized-first, first-fit within a bucket)."""
+        (most-utilized-first, first-fit within a bucket).  In sinkhorn
+        mode the solve is ``_sinkhorn`` (``sinkhorn_iters`` rounds, tau
+        0.1), which takes none of the three."""
         C, R = demand.shape
         N = avail.shape[0]
         accel_node, accel_class, spread_threshold = self._defaults(
@@ -393,6 +550,23 @@ class BatchSolver:
         c_pad, n_pad, r_pad = self._pads(C, N, R)
         dev = self.device
         _check_fp32_matmul(dev)
+        if self.mode == "sinkhorn":
+            if cost is not None or invert_util or zero_shifts:
+                raise ValueError(
+                    "cost/invert_util/zero_shifts are waterfill-only; "
+                    "the sinkhorn solver does not implement the cost "
+                    "matrix and silently dropping them would return a "
+                    "wrong-ordering solve")
+            allocs, _ = _sinkhorn(
+                _f32(avail, (n_pad, r_pad), dev),
+                _f32(total, (n_pad, r_pad), dev),
+                _f32(demand, (c_pad, r_pad), dev),
+                _f32(counts, (c_pad,), dev),
+                _bool(accel_node, (n_pad,), dev),
+                _bool(accel_class, (c_pad,), dev),
+                _scalar(spread_threshold, dev), _scalar(0.1, dev),
+                self.sinkhorn_iters)
+            return np.rint(allocs.cpu().numpy()[:C, :N]).astype(np.int64)
         cost_p = np.zeros((c_pad, n_pad), np.float32) if cost is None \
             else cost
         shifts = np.zeros(c_pad, np.int32) if zero_shifts else \
@@ -411,8 +585,36 @@ class BatchSolver:
         allocs = allocs.cpu().numpy()[:C, :N]
         return np.rint(allocs).astype(np.int64)
 
-    def solve_bundles(self, *args, **kwargs):
-        raise NotImplementedError(f"solve_bundles {_LATER_SLICE}")
+    # -- bundle interface (placement groups) -----------------------------
+    def solve_bundles(self, avail: np.ndarray, total: np.ndarray,
+                      demand: np.ndarray, strategy: str,
+                      excluded: Optional[np.ndarray] = None):
+        """Bundle -> node indices for one placement group in one device
+        program (``_pack_bundles``).  ``demand`` is [B, R] in the order
+        the rows are to be placed; the strategy rides the program's
+        score and masks (STRICT_PACK is the caller's one composite row).
+        Returns (node_idx [B] int64, ok [B] bool): callers treat any
+        ``~ok`` as all-or-nothing failure and re-validate against exact
+        vectors before committing."""
+        B, R = demand.shape
+        N = avail.shape[0]
+        b_pad = _round_up(max(B, 1), 8)
+        n_pad = _round_up(max(N, 8), _GROUP)
+        r_pad = _round_up(max(R, 1), 8)
+        if excluded is None:
+            excluded = np.zeros(N, dtype=bool)
+        pack_w = {"PACK": 10.0, "SPREAD": -10.0}.get(strategy, 0.0)
+        dev = self.device
+        idx, ok = _pack_bundles(
+            _f32(avail, (n_pad, r_pad), dev),
+            _f32(total, (n_pad, r_pad), dev),
+            _f32(demand, (b_pad, r_pad), dev),
+            _bool(excluded, (n_pad,), dev),
+            torch.zeros(n_pad, dtype=torch.bool, device=dev),
+            _scalar(pack_w, dev),
+            _scalar(1.0 if strategy == "STRICT_SPREAD" else 0.0, dev))
+        return (idx.cpu().numpy()[:B].astype(np.int64),
+                ok.cpu().numpy()[:B].astype(bool))
 
     # -- device-resident tick-stream interface ---------------------------
     def prepare_device(self, avail: np.ndarray, total: np.ndarray,

@@ -1,6 +1,6 @@
 """Where the transformer's train step spends its time on the card.
 
-    python -m ray_tpu_torch.tools.profile_train
+    python -m ray_tpu_torch.tools.profile_train [--moe]
 
 Builds ``bench_model.py``'s single-chip train state and batch as
 ``ray_tpu_torch.models.bench`` defines them for ``chip_smoke.py``'s T2
@@ -19,12 +19,17 @@ flash backward kernels, cuBLAS matrix products, the optimizer
 (``AdamW``'s ``torch._foreach_*`` launches, ``multi_tensor_apply``
 kernels) and the elementwise rest; then the top kernels and the
 registers and spills of each instance of the backward kernels, as
-``cuobjdump`` reads them.  Needs a CUDA device; prints the card's name
-and power limit first.
+``cuobjdump`` reads them.  With ``--moe`` the model is ``MOE_CONFIG``
+(``chip_smoke.py``'s T3, TFLOP/s by ``bench.moe_train_flops``), and the
+groups split out the MoE router, the gathers and scatters of its
+dispatch, and the experts' batched products forward and backward
+(``timing.expert_product_ms``) from the other matrix products.  Needs a
+CUDA device; prints the card's name and power limit first.
 """
 
 from __future__ import annotations
 
+import argparse
 import time
 from collections import defaultdict
 
@@ -40,26 +45,36 @@ _GROUPS = (
 )
 
 
-def _group(name: str) -> str:
+def _group(name: str, moe: bool) -> str:
+    from ray_tpu_torch.tools.timing import MOE_GROUPS
     low = name.lower()
-    for group, keys in _GROUPS:
+    for group, keys in _GROUPS + (MOE_GROUPS if moe else ()):
         if any(k in low for k in keys):
             return group
     return "elementwise and the rest (norms, RoPE, casts, loss, reductions)"
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.models import bench
-    from ray_tpu_torch.tools.timing import card, print_resource_usage
+    from ray_tpu_torch.models.moe import capacity
+    from ray_tpu_torch.tools.timing import (card, expert_product_ms,
+                                            print_resource_usage)
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--moe", action="store_true",
+                        help="profile MOE_CONFIG instead of CONFIG")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA device")
     print(card(), flush=True)
-    state, step, batch = bench.make_train("cuda")
+    cfg = bench.MOE_CONFIG if args.moe else bench.CONFIG
+    state, step, batch = bench.make_train("cuda", cfg=cfg)
     n_params = bench.n_params(state["params"])
+    step_flops = (bench.moe_train_flops(cfg) if args.moe
+                  else bench.train_flops(n_params))
     for _ in range(WARMUP):
         step(state, batch)
     torch.cuda.synchronize()
@@ -73,7 +88,8 @@ def main() -> int:
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA],
+                 record_shapes=args.moe) as prof:
         t0 = time.perf_counter()
         for _ in range(REPS):
             step(state, batch)
@@ -92,16 +108,24 @@ def main() -> int:
         raise SystemExit("profile_train: the profiler saw no device time")
     groups = defaultdict(float)
     for name, ms in kernels.items():
-        groups[_group(name)] += ms
-    cfg = bench.CONFIG
-    tflops = bench.train_flops(n_params) / (plain_wall_ms / 1e3) / 1e12
-    print(f"per step ({cfg.n_layers} layers, batch {bench.BATCH} x "
+        groups[_group(name, args.moe)] += ms
+    if args.moe:
+        experts = expert_product_ms(prof, capacity(
+            bench.BATCH * bench.SEQ, cfg.moe_experts,
+            cfg.moe_capacity_factor), REPS)
+        groups["matrix products (cuBLAS)"] -= experts
+        groups["experts' batched products (cuBLAS)"] = experts
+    tflops = step_flops / (plain_wall_ms / 1e3) / 1e12
+    print(f"per step ({cfg.n_layers} layers, {cfg.moe_experts} experts, "
+          f"batch {bench.BATCH} x "
           f"{bench.SEQ}, {str(cfg.dtype).split('.')[-1]}, remat={cfg.remat}, "
           f"{n_params / 1e6:.1f}M params): device {device_ms:.3f} ms; wall "
           f"{plain_wall_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - device_ms / plain_wall_ms):.3f}, {launches:.0f} "
           f"kernels ({1e3 * plain_wall_ms / launches:.1f} us of wall each), "
-          f"{tflops:.1f} TFLOP/s by bench.train_flops (under the profiler: "
+          f"{tflops:.1f} TFLOP/s by bench."
+          f"{'moe_train_flops' if args.moe else 'train_flops'} (under the "
+          f"profiler: "
           f"wall {wall_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - device_ms / wall_ms):.3f}); peak memory "
           f"{peak_gb:.2f} GB")

@@ -71,3 +71,32 @@ def print_resource_usage(source: str, kernels: str) -> None:
                       ("REG", "STACK", "LOCAL")]
             print(f"  {name}  {' '.join(fields)}")
             name = None
+
+
+# Kernel-name groups of the switch-MoE FFN's work outside the matrix
+# products (``models/moe.py``): the router's softmax, argmax and
+# cumulative sum, and the dispatch and combine gathers and scatters (the
+# embedding's gather and the loss's gather land there too).
+MOE_GROUPS = (
+    ("MoE router (softmax, argmax, cumsum)", ("softmax", "argmax", "scan")),
+    ("gathers, scatters, index kernels (MoE dispatch and combine, "
+     "embedding, the loss's gather)", ("index", "scatter", "gather")),
+)
+
+
+def expert_product_ms(prof, capacity: int, reps: int) -> float:
+    """Device ms per repetition of the experts' batched products, forward
+    and backward: the kernels of the ``aten::bmm`` calls of a profile
+    recorded with ``record_shapes`` whose inputs carry the experts'
+    capacity ``capacity`` as a dimension (no other product of the model
+    has it)."""
+    total = 0.0
+    for avg in prof.key_averages(group_by_input_shape=True):
+        if avg.key != "aten::bmm":
+            continue
+        dims = {d for shape in (avg.input_shapes or []) for d in shape}
+        if capacity in dims:
+            us = getattr(avg, "self_device_time_total",
+                         getattr(avg, "self_cuda_time_total", 0.0))
+            total += us / 1e3 / reps
+    return total

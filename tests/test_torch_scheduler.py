@@ -498,6 +498,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import ray_tpu_torch.tools.timing\n"
         "import ray_tpu_torch.models.optim\n"
         "import ray_tpu_torch.tools.profile_train\n"
+        "import ray_tpu_torch.models.moe\n"
+        "import ray_tpu_torch.scheduler.bundle_packing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax')"
         " or m == 'ray_tpu' or m.startswith('ray_tpu.')]\n"
         "assert not bad, bad\n"
@@ -521,11 +523,20 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     assert tb.BatchSolver(device="cpu").device.type == "cpu"
 
 
-def test_later_slices_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="sinkhorn"):
-        tb.BatchSolver(mode="sinkhorn", device="cpu")
-    with pytest.raises(NotImplementedError, match="bundles"):
-        tb.BatchSolver(device="cpu").solve_bundles(None, None, None, "PACK")
+def test_sinkhorn_mode_and_solve_bundles_now_run():
+    """The calls that raised before the bundle and sinkhorn slice."""
+    avail = total = np.full((4, 2), 4.0, dtype=np.float32)
+    solver = tb.BatchSolver(mode="sinkhorn", device="cpu")
+    assert solver.sinkhorn_iters == 8
+    alloc = solver.solve_matrices(avail, total,
+                                  np.array([[1.0, 0.0]], np.float32),
+                                  np.array([6]))
+    assert alloc.sum() == 6
+    idx, ok = tb.BatchSolver(device="cpu").solve_bundles(
+        avail, total, np.array([[1.0, 1.0]], np.float32), "PACK")
+    assert ok.all() and 0 <= idx[0] < 4
+    with pytest.raises(ValueError, match="mode"):
+        tb.BatchSolver(mode="bogus", device="cpu")
 
 
 # -- on the card -------------------------------------------------------------

@@ -165,10 +165,6 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda cfg: tt.init_params(torch.Generator(), dataclasses.replace(
-        cfg, moe_experts=2), device="cpu"), "moe"),
-    (lambda cfg: tt.Transformer(dataclasses.replace(cfg, moe_experts=2),
-                                device="cpu"), "moe"),
     (lambda cfg: tt.forward({}, None, cfg, mesh=object()), "mesh"),
     (lambda cfg: tt.param_specs(cfg), "mesh"),
     (lambda cfg: tra.ring_attention(None, None, None), "ring"),
@@ -177,6 +173,25 @@ def test_later_slices_raise_not_implemented(call, match):
     _, tcfg = _configs("f32")
     with pytest.raises(NotImplementedError, match=match):
         call(tcfg)
+
+
+@pytest.mark.parametrize("call", [
+    lambda cfg: tt.init_params(torch.Generator(), dataclasses.replace(
+        cfg, moe_experts=2), device="cpu"),
+    lambda cfg: tt.Transformer(dataclasses.replace(cfg, moe_experts=2),
+                               device="cpu").params(),
+])
+def test_moe_entry_points_now_run(call):
+    """The calls that raised before the MoE slice give the reference's
+    tree, with ``layers["moe"]`` in place of the dense FFN."""
+    _, tcfg = _configs("f32")
+    layers = call(tcfg)["layers"]
+    assert "w1" not in layers
+    moe = layers["moe"]
+    L, D, F = tcfg.n_layers, tcfg.d_model, tcfg.d_ff
+    assert {k: tuple(v.shape) for k, v in moe.items()} == {
+        "wr": (L, D, 2), "w1": (L, 2, D, F), "w3": (L, 2, D, F),
+        "w2": (L, 2, F, D)}
 
 
 def test_bench_config_is_bench_model_single_chip_config():
