@@ -61,7 +61,27 @@ each timed beside its bound and SDPA's backward; and the train step
       step, a finite grad_norm at every step;
   T3. the same at ``MOE_CONFIG``, nothing cut, TFLOP/s by
       ``moe_train_flops``, the first loss within 0.1 of the init loss
-      plus 0.01 times the auxiliary of a forward before the first step.
+      plus 0.01 times the auxiliary of a forward before the first step;
+
+and the train step on a device mesh (``parallel.mesh.build_mesh`` on a
+NCCL world of one, through a ``file://`` store in a temporary
+directory; one all-reduce checks NCCL first):
+
+  P1. T1 through ``make_train_state``/``make_train_step`` with the mesh,
+      against ``mesh=None`` on ``device="cpu"`` within ``TRAIN_F32_TOL``,
+      and ``ring_attention`` over the mesh's one-rank sp group at
+      [8, 1024, 16, 64] in float32 and bf16 against ``full_attention``;
+  P2. T2's config and batch with the mesh: ms per step, tokens/s and
+      device operations a step beside T2's from the same run, the first
+      loss within 1e-3 of T2's;
+  P3. the GPipe schedule (``parallel.pipeline``) with pp = 1 and 4
+      microbatches at the same config and batch: ms per step, the first
+      loss within 1e-2 of P2's.
+
+The machine has one card and NCCL puts no two ranks on one device, so
+every mesh here has one rank: no multi-rank number exists (the
+multi-rank paths are held to JAX by gloo worlds on the CPU,
+``tests/test_torch_parallel.py`` and ``tests/test_torch_pipeline.py``).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -87,6 +107,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+# P3's microbatches: 4 of 2 sequences each at bench_model.py's batch of 8.
+PP_MICRO = 4
 
 
 def log(*a):
@@ -710,8 +732,8 @@ class RouteLog:
         self.tm, self.real, self.calls = tm, tm.route, []
 
     def __enter__(self):
-        def route(xt, wr, cap):
-            probs, choice, slot = self.real(xt, wr, cap)
+        def route(xt, wr, cap, *mesh_and_rows):
+            probs, choice, slot = self.real(xt, wr, cap, *mesh_and_rows)
             self.calls.append((choice.cpu(), slot.cpu(), cap))
             return probs, choice, slot
         self.tm.route = route
@@ -978,31 +1000,32 @@ TRAIN_F32_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "grad_atol": 1e-5,
                  "share": 1e-4, "max": 1e-3}
 
 
-def phase_train_f32(torch, tt, fa, mb, base, name="train f32"):
-    """T1 (``base`` = ``CONFIG``) and T3-f32 (``MOE_CONFIG``): full width,
-    2 layers, float32, remat: the gradients of the first step, then 3
-    train steps, on the card (through both flash kernels) against the CPU
-    (through full_attention) from the same weights."""
-    from ray_tpu_torch.models.optim import AdamW, leaves
+def phase_train_f32(torch, tt, fa, mb, base, name="train f32", mesh=None):
+    """T1 (``base`` = ``CONFIG``), T3-f32 (``MOE_CONFIG``) and P1 (``CONFIG``
+    with ``mesh``, a mesh of one): full width, 2 layers, float32, remat:
+    the gradients of the first step, then 3 train steps, on the card
+    (through both flash kernels; on ``mesh`` if given) against the CPU
+    (through full_attention, no mesh) from the same weights: both
+    ``make_train_state`` from one CPU generator."""
+    from ray_tpu_torch.models.optim import leaves
     tol = TRAIN_F32_TOL
     cfg = dataclasses.replace(base, n_layers=2, dtype=torch.float32,
                               remat=True)
-    params = tt.init_params(torch.Generator().manual_seed(0), cfg,
-                            device="cpu")
     tokens = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab_size, (2, 257)).astype(np.int64))
     runs = {}
-    for dev in ("cuda", "cpu"):
-        tx, p = AdamW(), _tree_to(params, dev)
-        runs[dev] = (tt.train_state(p, tx.init(p)), tt.make_train_step(cfg, tx))
+    for role, dev, on in (("card", "cuda", mesh), ("host", "cpu", None)):
+        state, tx = tt.make_train_state(torch.Generator().manual_seed(0), cfg,
+                                        mesh=on, device=dev)
+        runs[role] = (state, tt.make_train_step(cfg, tx, mesh=on), on, dev)
     fwd, bwd = fa.flash_attention.launches, fa.flash_attention_backward.launches
     grads = {}
-    for dev, (state, _) in runs.items():
-        p = leaves(state["params"])
-        loss = tt.loss_fn(state["params"], {"tokens": tokens.to(dev)}, cfg)
-        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, p)]
+    for role, (state, _, on, dev) in runs.items():
+        _, g = tt.loss_and_grads(state["params"], {"tokens": tokens.to(dev)},
+                                 cfg, on)
+        grads[role] = [t.cpu() for t in leaves(g)]
     grad_err = 0.0
-    for g, w in zip(grads["cuda"], grads["cpu"]):
+    for g, w in zip(grads["card"], grads["host"]):
         diff = (g - w).abs()
         scale = float(w.abs().max())
         if (diff > tol["grad_atol"] * scale + tol["grad_rtol"] * w.abs()).any():
@@ -1014,13 +1037,13 @@ def phase_train_f32(torch, tt, fa, mb, base, name="train f32"):
     cpu_s = 0.0
     for i in range(3):
         metrics = {}
-        for dev, (state, step) in runs.items():
+        for role, (state, step, _, dev) in runs.items():
             t0 = time.perf_counter()
             _, m = step(state, {"tokens": tokens.to(dev)})
-            metrics[dev] = {k: float(v) for k, v in m.items()}
-            if dev == "cpu":
+            metrics[role] = {k: float(v) for k, v in m.items()}
+            if role == "host":
                 cpu_s += time.perf_counter() - t0
-        got, want = metrics["cuda"], metrics["cpu"]
+        got, want = metrics["card"], metrics["host"]
         d_loss = abs(got["loss"] - want["loss"])
         d_norm = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
         if d_loss > tol["loss"] or d_norm > tol["grad_norm"]:
@@ -1028,8 +1051,8 @@ def phase_train_f32(torch, tt, fa, mb, base, name="train f32"):
                                  f"{want['loss']}, grad_norm "
                                  f"{got['grad_norm']} vs {want['grad_norm']}")
         off = total = 0
-        for g, w in zip(leaves(runs["cuda"][0]["params"]),
-                        leaves(runs["cpu"][0]["params"])):
+        for g, w in zip(leaves(runs["card"][0]["params"]),
+                        leaves(runs["host"][0]["params"])):
             diff = (g.detach().cpu() - w.detach()).abs()
             off += int((diff > tol["atol"] + tol["rtol"] *
                         w.detach().abs()).sum())
@@ -1058,19 +1081,31 @@ def phase_train_f32(torch, tt, fa, mb, base, name="train f32"):
         f"beyond atol {worst['share']}); flash launches forward "
         f"{launches[0]}, backward {launches[1]}; CPU steps {cpu_s:.1f} s")
     del runs
-    return worst
+    return dict(worst, launches=launches)
 
 
-def phase_train_bf16(torch, tt, fa, mb, cfg, flops, accounting, name):
+def phase_train_bf16(torch, tt, fa, mb, cfg, flops, accounting, name,
+                     mesh=None, n_micro=None):
     """T2 (``cfg`` = ``CONFIG``, ``flops(n_params)`` by ``train_flops``)
     and T3 (``MOE_CONFIG``, by ``moe_train_flops``), the training path:
-    bench_model.py's batch, remat, 1 warm-up and 10 timed steps.  The
-    first loss is held to the init loss plus, with experts,
-    ``moe_aux_coeff`` times the auxiliary of a forward before the
-    first step."""
+    bench_model.py's batch, remat, 1 warm-up and 10 timed steps; P2
+    (``CONFIG`` on ``mesh``) and P3 (the GPipe schedule on ``mesh`` with
+    ``n_micro`` microbatches) the same.  The first loss is held to the
+    init loss plus, with experts, ``moe_aux_coeff`` times the auxiliary
+    of a forward before the first step.  Then one more step under the
+    profiler counts the device operations a step launches."""
+    from ray_tpu_torch.tools.timing import device_profile
     B, S = mb.BATCH, mb.SEQ
     torch.cuda.reset_peak_memory_stats()
-    state, step, batch = mb.make_train("cuda", cfg=cfg)
+    if n_micro is None:
+        state, step, batch = mb.make_train("cuda", cfg=cfg, mesh=mesh)
+
+        def loss_of(params, batch):
+            return tt.loss_fn(params, batch, cfg, mesh)
+    else:
+        state, step, batch, loss_of = mb.make_pp_train(mesh, n_micro, "cuda",
+                                                       cfg)
+    micro = n_micro or 1
     n_params = mb.n_params(state["params"])
     step_flops = flops(n_params)
     aux0 = 0.0
@@ -1097,16 +1132,17 @@ def phase_train_bf16(torch, tt, fa, mb, cfg, flops, accounting, name):
     routes = dict(fa.flash_attention_backward.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = reps + 1
-    if launches != (2 * cfg.n_layers * steps, cfg.n_layers * steps):
+    per_step = (2 * cfg.n_layers * micro, cfg.n_layers * micro)
+    if launches != (per_step[0] * steps, per_step[1] * steps):
         raise AssertionError(f"flash launches {launches} in {steps} steps, "
-                             f"expected {2 * cfg.n_layers} forward and "
-                             f"{cfg.n_layers} backward per step")
+                             f"expected {per_step[0]} forward and "
+                             f"{per_step[1]} backward per step")
     if routes["wgmma"] != launches[1]:
         raise AssertionError(f"backward routes in {name}: {routes}")
     losses = [float(h["loss"]) for h in history]
     norms = [float(h["grad_norm"]) for h in history]
     with torch.no_grad():
-        final = float(tt.loss_fn(state["params"], batch, cfg))
+        final = float(loss_of(state["params"], batch))
     expected = (math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2 +
                 cfg.moe_aux_coeff * aux0)
     if abs(losses[0] - expected) > 0.1:
@@ -1131,9 +1167,76 @@ def phase_train_bf16(torch, tt, fa, mb, cfg, flops, accounting, name):
         f"after {steps}; grad_norm {norms[0]:.4f} .. {norms[-1]:.4f}; flash "
         f"launches forward {launches[0]}, backward {launches[1]} in {steps} "
         f"steps (routes {routes})")
+    device_ms, ops = device_profile(lambda: step(state, batch))
+    log(f"[{name}] {ops:.0f} device operations launched a step, "
+        f"{device_ms:.3f} ms of device time (torch.profiler, one step)")
     return {"step_ms": step_s * 1e3, "tokens_per_s": tok_s,
             "tflops": tflops, "peak_gb": peak_gb, "loss_first": losses[0],
-            "loss_final": final, "launches": launches}
+            "loss_final": final, "launches": launches,
+            "ops_per_step": ops}
+
+
+# Ring attention over a one-rank sp group against full_attention on the
+# card: float32 within 1e-5; bf16 within 2**-6 (one bf16 ulp at the
+# largest outputs, in [2, 4)): the ring rounds its unnormalised
+# probabilities to bf16 before the product with v and divides after it,
+# full_attention rounds the normalised ones.
+RING_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
+
+
+def start_world(torch):
+    """A NCCL world of one (a ``file://`` store in a temporary directory)
+    and the mesh of one on it (``build_mesh`` with no device: the card);
+    one all-reduce on the world shows NCCL starts on this machine."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    store = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    mesh = build_mesh(MeshConfig())
+    x = torch.full((8,), 3.0, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    if not bool((x == 3.0).all()):
+        raise AssertionError(f"NCCL all-reduce over one rank gave {x}")
+    log(f"[mesh] NCCL world of 1 ({dist.get_backend()}), mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+        f"{mesh.device_type}; all-reduce checked")
+    return mesh, store
+
+
+def phase_ring(torch, mb, mesh):
+    """P1's attention: ``ring_attention`` over the mesh's one-rank sp
+    group at the model's shape against ``full_attention``, on the card."""
+    from ray_tpu_torch.ops.ring_attention import full_attention, ring_attention
+    B, L, H, D = mb.BATCH, mb.SEQ, mb.CONFIG.n_heads, mb.CONFIG.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = [torch.randn((B, L, H, D), generator=gen, device="cuda",
+                               dtype=torch.float32).to(dtype)
+                   for _ in range(3)]
+        got = ring_attention(q, k, v, axis_name="sp", mesh=mesh)
+        want = full_attention(q, k, v)
+        torch.cuda.synchronize()
+        key = str(dtype).split(".")[-1]
+        tol = RING_TOL[key]
+        diff = (got.float() - want.float()).abs()
+        if not torch.isfinite(got).all() or bool(
+                (diff > tol + tol * want.float().abs()).any()):
+            raise AssertionError(f"ring attention {key} off full_attention "
+                                 f"by {float(diff.max())}")
+        errs[key] = float(diff.max())
+    log(f"[mesh ring] ring_attention over a one-rank sp group at [{B}, {L}, "
+        f"{H}, {D}] against full_attention: max |diff| {errs} (tolerance "
+        f"{RING_TOL})")
+    return errs
 
 
 def main() -> int:
@@ -1161,6 +1264,9 @@ def main() -> int:
     from ray_tpu_torch.models import transformer as tt
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import class_fill as cf
+    for name in ("ops.ring_attention", "parallel.collectives",
+                 "parallel.mesh", "parallel.pipeline"):
+        importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
     from ray_tpu_torch.scheduler import bundle_packing as tbp
@@ -1198,6 +1304,41 @@ def main() -> int:
     t3 = phase_train_bf16(torch, tt, fa, mb, mb.MOE_CONFIG,
                           lambda _: mb.moe_train_flops(), "moe_train_flops",
                           "moe train bf16")
+    # P1-P3: the same model on a mesh of one (the machine has one card, and
+    # NCCL puts no two ranks on one device: no multi-rank number exists).
+    import shutil
+
+    import torch.distributed as dist
+    the_mesh, store = start_world(torch)
+    try:
+        p1 = phase_train_f32(torch, tt, fa, mb, mb.CONFIG, "mesh train f32",
+                             mesh=the_mesh)
+        ring_err = phase_ring(torch, mb, the_mesh)
+        p2 = phase_train_bf16(torch, tt, fa, mb, mb.CONFIG, mb.train_flops,
+                              "train_flops", "mesh train bf16",
+                              mesh=the_mesh)
+        p3 = phase_train_bf16(torch, tt, fa, mb, mb.CONFIG, mb.train_flops,
+                              "train_flops", "pp train bf16", mesh=the_mesh,
+                              n_micro=PP_MICRO)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    if abs(p2["loss_first"] - t2["loss_first"]) > 1e-3:
+        raise AssertionError(f"P2's first loss {p2['loss_first']} is not "
+                             f"within 1e-3 of T2's {t2['loss_first']}")
+    if abs(p3["loss_first"] - p2["loss_first"]) > 1e-2:
+        raise AssertionError(f"P3's first loss {p3['loss_first']} is not "
+                             f"within 1e-2 of P2's {p2['loss_first']}")
+    log(f"[mesh] per step, batch {mb.BATCH} x {mb.SEQ}: T2 (no mesh) "
+        f"{t2['step_ms']:.3f} ms, {t2['tokens_per_s']:.0f} tokens/s, "
+        f"{t2['ops_per_step']:.0f} device operations; P2 (mesh of one) "
+        f"{p2['step_ms']:.3f} ms, {p2['tokens_per_s']:.0f} tokens/s, "
+        f"{p2['ops_per_step']:.0f} operations "
+        f"({p2['ops_per_step'] - t2['ops_per_step']:+.0f}); P3 (GPipe, pp 1, "
+        f"{PP_MICRO} microbatches) {p3['step_ms']:.3f} ms, "
+        f"{p3['tokens_per_s']:.0f} tokens/s, {p3['ops_per_step']:.0f} "
+        f"operations; first losses T2 {t2['loss_first']:.6f}, P2 "
+        f"{p2['loss_first']:.6f}, P3 {p3['loss_first']:.6f}")
 
     kernels = [{
         "name": "class_fill",
@@ -1218,7 +1359,8 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/flash_attention.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:79",
         "launches": (launches_m + t2["launches"][0] + m3["launches"] +
-                     t3["launches"][0]),
+                     t3["launches"][0] + p1["launches"][0] +
+                     p2["launches"][0] + p3["launches"][0]),
         "max_abs_err": f["max_abs_err"],
         "ms": f["ms"],
         "plain_ms": f["plain_ms"],
@@ -1233,7 +1375,9 @@ def main() -> int:
         "replaces": "none: JAX differentiates full_attention "
                     "(ray_tpu/ops/flash_attention.py:101-103)",
         "design": "wgmma+tma, one launch for dK/dV and dQ after delta's",
-        "launches": t2["launches"][1] + t3["launches"][1],
+        "launches": (t2["launches"][1] + t3["launches"][1] +
+                     p1["launches"][1] + p2["launches"][1] +
+                     p3["launches"][1]),
         "max_abs_err": fb["max_abs_err"],
         "ms": fb["ms"],
         "plain_ms": fb["plain_ms"],
@@ -1269,6 +1413,21 @@ def main() -> int:
                     "moe_train_loss_first": t3["loss_first"],
                     "moe_train_loss_final": t3["loss_final"],
                     "moe_train_f32_max_param_diff": t3f["param"],
+                    "mesh_train_f32_max_param_diff": p1["param"],
+                    "mesh_ring_max_abs_err": ring_err,
+                    "mesh_train_step_ms": p2["step_ms"],
+                    "mesh_train_tokens_per_s": p2["tokens_per_s"],
+                    "mesh_train_loss_first": p2["loss_first"],
+                    "mesh_train_loss_final": p2["loss_final"],
+                    "pp_train_step_ms": p3["step_ms"],
+                    "pp_train_tokens_per_s": p3["tokens_per_s"],
+                    "pp_train_loss_first": p3["loss_first"],
+                    "pp_train_loss_final": p3["loss_final"],
+                    "device_ops_per_step": {
+                        "train": t2["ops_per_step"],
+                        "moe_train": t3["ops_per_step"],
+                        "mesh_train": p2["ops_per_step"],
+                        "pp_train": p3["ops_per_step"]},
                     "bundles_ms_per_call": bundle_ms,
                     "sinkhorn_ms_per_tick": sinkhorn_ms,
                     "launches": {"path_a": launches_a,
@@ -1278,7 +1437,14 @@ def main() -> int:
                                  "train_forward": t2["launches"][0],
                                  "train_backward": t2["launches"][1],
                                  "moe_train_forward": t3["launches"][0],
-                                 "moe_train_backward": t3["launches"][1]}}))
+                                 "moe_train_backward": t3["launches"][1],
+                                 "mesh_train_f32_forward": p1["launches"][0],
+                                 "mesh_train_f32_backward":
+                                     p1["launches"][1],
+                                 "mesh_train_forward": p2["launches"][0],
+                                 "mesh_train_backward": p2["launches"][1],
+                                 "pp_train_forward": p3["launches"][0],
+                                 "pp_train_backward": p3["launches"][1]}}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

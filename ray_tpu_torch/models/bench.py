@@ -61,17 +61,35 @@ def train_tokens(device=None, cfg=None) -> torch.Tensor:
         resolve_device(device))
 
 
-def make_train(device=None, cfg=None):
+def make_train(device=None, cfg=None, mesh=None):
     """The train state at ``cfg`` (``None``: ``CONFIG``) with weights
     drawn from ``PARAM_SEED`` on ``device``, its step function, and the
-    training batch: ``(state, step, batch)``."""
+    training batch: ``(state, step, batch)``.  With ``mesh`` the state
+    holds this rank's shards and the step runs on the mesh (the same
+    weights and batch)."""
     cfg = cfg or CONFIG
     dev = resolve_device(device)
     state, tx = make_train_state(
         torch.Generator(device=dev).manual_seed(PARAM_SEED), cfg,
-        device=dev)
-    return state, make_train_step(cfg, tx), {
+        mesh=mesh, device=dev)
+    return state, make_train_step(cfg, tx, mesh=mesh), {
         "tokens": train_tokens(device=dev, cfg=cfg)}
+
+
+def make_pp_train(mesh, n_micro: int, device=None, cfg=None):
+    """:func:`make_train` on the GPipe schedule of ``parallel.pipeline``
+    over ``mesh``'s pp axis with ``n_micro`` microbatches: the same
+    weights and batch; ``(state, step, batch, loss)`` with ``loss(params,
+    batch)`` the schedule's loss."""
+    from ray_tpu_torch.parallel import pipeline
+    cfg = cfg or CONFIG
+    dev = resolve_device(device)
+    state, tx = pipeline.make_pp_train_state(
+        torch.Generator(device=dev).manual_seed(PARAM_SEED), cfg, mesh,
+        device=dev)
+    return (state, pipeline.make_pp_train_step(cfg, tx, mesh, n_micro),
+            {"tokens": train_tokens(device=dev, cfg=cfg)},
+            pipeline.make_pp_loss_fn(cfg, mesh, n_micro))
 
 
 def n_params(params) -> int:

@@ -1,4 +1,5 @@
-"""Switch mixture-of-experts FFN on one device.
+"""Switch mixture-of-experts FFN, on one device or with its experts over
+a mesh's ``ep`` axis.
 
 The counterpart of ``ray_tpu/models/moe.py``: a top-1 router, experts of
 capacity C = ``max(1, int(capacity_factor * T / n_experts))`` for T =
@@ -24,6 +25,19 @@ tokens, 8 experts and capacity 1.25).  ``gate`` is
 ``probs.gather(choice)``, so its gradient reaches the chosen expert only;
 ``jnp.max`` would split it among exact ties.  The expert products are
 plain batched products, as the JAX package leaves them to XLA.
+
+On a mesh (``parallel.mesh.build_mesh``) the tokens are split over dp
+and sp and replicated over ep, and the experts split over ep
+(:func:`moe_param_specs`).  Routing stays global: the capacity counts
+the global T, and a token's place in its expert's queue is its rank in
+the global row-major [B * S] order, which a rank's tokens do not cover
+in one run under sp, so each token's offset comes from the per-row
+counts of every (dp, sp) rank (one all-gather of [E, B/dp] counts).
+Each ep rank runs its own experts on its (dp, sp) block's tokens, each
+in its global slot, and the partial outputs are summed over ep (g)
+before the gate multiplies them, so the router's gradient is whole on
+every ep rank (the auxiliary's too) and is not summed over ep.  The
+auxiliary's f and p are means over the global tokens.
 """
 
 from __future__ import annotations
@@ -32,9 +46,12 @@ from typing import Dict
 
 import torch
 
-_MESH_SLICE = ("is not ported to ray_tpu_torch yet; it belongs to the "
-               "slice that ports the device mesh, ring attention and the "
-               "pipeline over torch.distributed")
+from ray_tpu_torch.parallel.collectives import (all_gather, copy_to,
+                                                reduce_from)
+from ray_tpu_torch.parallel.mesh import axis_index, axis_size, check_mesh
+
+#: The axes that split a layer's tokens.
+TOKEN_AXES = ("dp", "sp")
 
 
 def init_moe_params(generator: torch.Generator, n_layers: int, d_model: int,
@@ -56,8 +73,14 @@ def init_moe_params(generator: torch.Generator, n_layers: int, d_model: int,
     }
 
 
-def moe_param_specs():
-    raise NotImplementedError(f"moe_param_specs {_MESH_SLICE}")
+def moe_param_specs() -> Dict:
+    """Experts sharded over ``ep``; router replicated."""
+    return {
+        "wr": (None, None),
+        "w1": (None, "ep", None, None),
+        "w3": (None, "ep", None, None),
+        "w2": (None, "ep", None, None),
+    }
 
 
 def capacity(n_tokens: int, n_experts: int, capacity_factor: float) -> int:
@@ -65,11 +88,13 @@ def capacity(n_tokens: int, n_experts: int, capacity_factor: float) -> int:
     return max(1, int(capacity_factor * n_tokens / n_experts))
 
 
-def route(xt: torch.Tensor, wr: torch.Tensor, cap: int):
+def route(xt: torch.Tensor, wr: torch.Tensor, cap: int, mesh=None,
+          rows: int = 1):
     """The router on tokens ``xt [T, D]``: ``(probs [T, E] float32,
     choice [T], slot [T])``, where ``slot`` is ``choice * cap + pos`` for
     a token kept at position ``pos < cap`` of its expert's queue and
-    ``E * cap`` for a dropped one."""
+    ``E * cap`` for a dropped one.  On a mesh ``xt`` is this rank's
+    block of ``rows`` rows and ``pos`` the rank in the global order."""
     n_experts = wr.shape[-1]
     probs = torch.softmax(xt.float() @ wr.float(), dim=-1)
     choice = torch.argmax(probs, dim=-1)
@@ -80,47 +105,87 @@ def route(xt: torch.Tensor, wr: torch.Tensor, cap: int):
     # thread: 1.45 ms a call at T = 8,192 on the H100).
     onehot = (choice[None, :] == torch.arange(
         n_experts, device=choice.device)[:, None]).to(torch.int32)
-    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32).gather(
-        0, choice[None, :])[0] - 1
+    if mesh is None:
+        pos = torch.cumsum(onehot, dim=1, dtype=torch.int32).gather(
+            0, choice[None, :])[0] - 1
+    else:
+        pos = _global_rank_in_queue(onehot, choice, mesh, rows)
     slot = torch.where(pos < cap, choice * cap + pos,
                        torch.full_like(choice, n_experts * cap))
     return probs, choice, slot
 
 
+def _global_rank_in_queue(onehot: torch.Tensor, choice: torch.Tensor,
+                          mesh, rows: int) -> torch.Tensor:
+    """Each token's exclusive rank in its expert's queue in the global
+    row-major [B * S] order, from this rank's one-hot [E, T] of ``rows``
+    rows: the tokens of earlier rows on every (dp, sp) rank, of this
+    row in earlier sp chunks, then of this chunk before it."""
+    E = onehot.shape[0]
+    per_row = onehot.view(E, rows, -1)
+    within = torch.cumsum(per_row, dim=2, dtype=torch.int32) - per_row
+    counts = per_row.sum(dim=2, dtype=torch.int32)               # [E, b]
+    dp, sp = axis_size(mesh, "dp"), axis_size(mesh, "sp")
+    # [E, dp * sp * b] in (dp, sp) order -> [E, dp, b, sp] -> rows x chunks.
+    every = all_gather(counts, 1, mesh, TOKEN_AXES).view(E, dp, sp, rows)
+    every = every.permute(0, 1, 3, 2).reshape(E, -1)
+    before = torch.cumsum(every, dim=1, dtype=torch.int32) - every
+    d, s = axis_index(mesh, "dp"), axis_index(mesh, "sp")
+    mine = before.view(E, dp, rows, sp)[:, d, :, s]              # [E, b]
+    pos = (within + mine[:, :, None]).view(E, -1)
+    return pos.gather(0, choice[None, :])[0]
+
+
 def moe_ffn(x: torch.Tensor, lp: Dict, n_experts: int,
             capacity_factor: float, mesh=None) -> torch.Tensor:
     """One MoE FFN block: x [B, S, D] -> [B, S, D] (residual not
-    included).  ``lp`` holds this layer's wr/w1/w3/w2."""
+    included).  ``lp`` holds this layer's wr/w1/w3/w2.  On a mesh ``x``
+    is this rank's block of the layer's tokens and ``lp``'s experts its
+    shard over ep."""
     if mesh is not None:
-        raise NotImplementedError(f"an expert-parallel mesh {_MESH_SLICE}")
+        check_mesh(mesh)
     B, S, D = x.shape
     T = B * S
-    cap = capacity(T, n_experts, capacity_factor)
+    cap = capacity(T * axis_size(mesh, TOKEN_AXES), n_experts,
+                   capacity_factor)
     xt = x.reshape(T, D)
-    probs, choice, slot = route(xt, lp["wr"], cap)
+    probs, choice, slot = route(xt, lp["wr"], cap, mesh, B)
     gate = probs.gather(-1, choice[:, None])                 # [T, 1]
+    # This rank's experts (all of them off a mesh) and their slots; a
+    # slot of another ep rank, like a dropped token, maps to the zero row
+    # at the end.
+    n_local = lp["w1"].shape[0]
+    if axis_size(mesh, "ep") > 1:
+        slot = slot - axis_index(mesh, "ep") * n_local * cap
+        slot = torch.where((slot >= 0) & (slot < n_local * cap), slot,
+                           torch.full_like(slot, n_local * cap))
     # The token in each (expert, slot), T (a zero row) where none is.
-    owner = torch.full((n_experts * cap + 1,), T, dtype=slot.dtype,
+    owner = torch.full((n_local * cap + 1,), T, dtype=slot.dtype,
                        device=x.device)
     owner.scatter_(0, slot, torch.arange(T, device=x.device))
-    xt0 = torch.cat([xt, xt.new_zeros(1, D)])
-    ex_in = xt0.index_select(0, owner[:-1]).view(n_experts, cap, D)
+    xe = copy_to(xt, mesh, "ep")
+    xt0 = torch.cat([xe, xe.new_zeros(1, D)])
+    ex_in = xt0.index_select(0, owner[:-1]).view(n_local, cap, D)
     h = torch.nn.functional.silu(torch.bmm(ex_in, lp["w1"])) * \
         torch.bmm(ex_in, lp["w3"])
-    ex_out = torch.bmm(h, lp["w2"]).view(n_experts * cap, D)
+    ex_out = torch.bmm(h, lp["w2"]).view(n_local * cap, D)
     ex_out0 = torch.cat([ex_out, ex_out.new_zeros(1, D)])
-    y = gate * ex_out0.index_select(0, slot).float()
-    return y.to(x.dtype).view(B, S, D)
+    # One nonzero term per token over ep: the sum is exact.
+    y = reduce_from(ex_out0.index_select(0, slot), mesh, "ep")
+    return (gate * y.float()).to(x.dtype).view(B, S, D)
 
 
 def aux_load_balance_loss(x: torch.Tensor, wr: torch.Tensor,
-                          n_experts: int) -> torch.Tensor:
+                          n_experts: int, mesh=None) -> torch.Tensor:
     """Switch load-balance auxiliary loss: E * sum_e f_e * p_e, where
-    f_e = fraction of tokens routed to e, p_e = mean router prob."""
+    f_e = fraction of tokens routed to e, p_e = mean router prob.  On a
+    mesh both are means over the global tokens: their sums are summed
+    over dp and sp before the product."""
     T = x.shape[0] * x.shape[1]
     probs = torch.softmax(x.reshape(T, -1).float() @ wr.float(), dim=-1)
     choice = torch.nn.functional.one_hot(torch.argmax(probs, dim=-1),
                                          n_experts).float()
-    f = choice.mean(dim=0)
-    p = probs.mean(dim=0)
+    n = T * axis_size(mesh, TOKEN_AXES)
+    f = reduce_from(choice.sum(dim=0), mesh, TOKEN_AXES) / n
+    p = reduce_from(probs.sum(dim=0), mesh, TOKEN_AXES) / n
     return n_experts * torch.sum(f * p)

@@ -35,6 +35,8 @@ from typing import Dict, List
 
 import torch
 
+from ray_tpu_torch.parallel.collectives import all_reduce
+
 
 def leaves(tree) -> List[torch.Tensor]:
     """A tree's tensors in a fixed order (dict keys sorted)."""
@@ -59,12 +61,22 @@ def _const(x: float, dtype: torch.dtype) -> float:
     return torch.tensor(x, dtype=torch.float64).to(dtype).item()
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
     """optax's global norm, as ``optax_global_norm``
     (``ray_tpu/models/transformer.py:308-311``): the square root of the
-    sum of squares of every leaf, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in leaves(tree)))
+    sum of squares of every leaf, in float32.  On a mesh ``tree`` holds
+    this rank's shards per ``specs`` and the norm is the global tree's:
+    each sharded leaf's sum of squares is summed over its shard axes, a
+    replicated leaf counted once."""
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                              for t in leaves(tree)))
+    sums: Dict = {}
+    for t, spec in zip(leaves(tree), leaves(specs)):
+        axes = tuple(a for a in spec if a is not None)
+        sums[axes] = sums.get(axes, 0) + torch.sum(torch.square(t.float()))
+    return torch.sqrt(sum(all_reduce(s, mesh, axes)
+                          for axes, s in sums.items()))
 
 
 class AdamW:

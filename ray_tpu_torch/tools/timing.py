@@ -41,6 +41,26 @@ def events_ms(fn, iters: int, warmup: int = 2, hold: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_profile(fn, reps: int = 1):
+    """``(device ms, device operations)`` of one call of ``fn``: the
+    operations (kernels, copies, fills) ``torch.profiler`` traces over
+    ``reps`` calls, and their summed durations, per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [evt for evt in prof.events()
+           if evt.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        raise RuntimeError("the profiler saw no device operation")
+    ms = sum(evt.time_range.elapsed_us() for evt in ops) / 1e3
+    return ms / reps, len(ops) / reps
+
+
 def print_resource_usage(source: str, kernels: str) -> None:
     """Registers, stack and local (spill) memory of each instance of the
     kernels of ``csrc/<source>`` whose names match the regular expression

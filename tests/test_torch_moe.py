@@ -98,8 +98,8 @@ def margins(monkeypatch):
     seen = []
     real = tm.route
 
-    def route(xt, wr, cap):
-        out = real(xt, wr, cap)
+    def route(xt, wr, cap, *mesh_and_rows):
+        out = real(xt, wr, cap, *mesh_and_rows)
         seen.append(_top2_margin(out[0]))
         return out
     monkeypatch.setattr(tm, "route", route)
@@ -238,10 +238,14 @@ def test_capacity_is_the_reference_s():
 
 
 def test_moe_param_specs_raises_naming_the_mesh_slice():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tm.moe_param_specs()
+    """The expert-parallel slice is in: the specs are the reference's
+    (experts over ep), and ``moe_ffn`` takes a mesh of
+    ``parallel.mesh.build_mesh`` only, raising on any other object."""
+    assert tm.moe_param_specs() == {
+        "wr": (None, None), "w1": (None, "ep", None, None),
+        "w3": (None, "ep", None, None), "w2": (None, "ep", None, None)}
     x, lp = _ffn_inputs()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tm.moe_ffn(torch.from_numpy(x), {k: torch.from_numpy(v)
                                          for k, v in lp.items()},
                    4, 2.0, mesh=object())

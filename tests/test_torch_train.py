@@ -320,8 +320,11 @@ def test_train_state_from_numpy_carries_optax_state():
     lambda cfg: tt.make_train_step(cfg, AdamW(), mesh=object()),
 ])
 def test_training_on_a_mesh_raises_naming_the_mesh_slice(call):
+    """Training takes a mesh of ``parallel.mesh.build_mesh`` only: any
+    other object raises, naming the mesh, and never falls back to one
+    device (``tests/test_torch_parallel.py`` trains on real meshes)."""
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         call(tcfg)
 
 

@@ -164,15 +164,25 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     assert tt.Transformer(tcfg, device="cpu").embed.device.type == "cpu"
 
 
-@pytest.mark.parametrize("call,match", [
-    (lambda cfg: tt.forward({}, None, cfg, mesh=object()), "mesh"),
-    (lambda cfg: tt.param_specs(cfg), "mesh"),
-    (lambda cfg: tra.ring_attention(None, None, None), "ring"),
-])
-def test_later_slices_raise_not_implemented(call, match):
+@pytest.mark.parametrize("experts", [0, 2])
+def test_mesh_entry_points_now_run(experts):
+    """``param_specs``, which raised before the mesh slice, gives a spec
+    for every leaf of the parameter tree, at most one entry per dimension
+    (the reference's router spec names two of ``wr``'s three: the rest
+    are replicated; ``tests/test_torch_parallel.py`` holds the specs to
+    JAX's and trains on them)."""
     _, tcfg = _configs("f32")
-    with pytest.raises(NotImplementedError, match=match):
-        call(tcfg)
+    cfg = dataclasses.replace(tcfg, moe_experts=experts)
+
+    def walk(spec, leaf):
+        if isinstance(leaf, dict):
+            assert set(spec) == set(leaf)
+            for k in leaf:
+                walk(spec[k], leaf[k])
+        else:
+            assert len(spec) <= leaf.dim()
+    walk(tt.param_specs(cfg),
+         tt.init_params(torch.Generator(), cfg, device="cpu"))
 
 
 @pytest.mark.parametrize("call", [
