@@ -22,6 +22,29 @@ and each solve bit-equal to ``device="cpu"``; and one sinkhorn tick
 (``mode="sinkhorn"``) of the bench problem, capacity and counts held and
 bit-equal to ``device="cpu"``; ms per call of each;
 
+the raylet's scheduling plane around the tick and the autoscaler's pack
+mode (``ray_tpu_torch._private``, ``ray_tpu_torch.autoscaler``):
+
+  R1. one ``Raylet`` on the card with Path B's 10,000-node view and a
+      burst of 20,000 leases in 64 classes (``request_worker_lease_batch``,
+      batches of 100), one ``schedule_and_dispatch`` a round, granted
+      workers returned and backlog resubmitted until no round places
+      more: every reply equal to a ``Raylet(device="cpu")``'s, one
+      ``class_fill`` launch per batched tick, no fallback and no error;
+      ms per busy tick, the decisions, the tick and solver counters and
+      the rendered ``ray_tpu_scheduler_*`` series;
+  R2. ``get_bin_pack_residual`` of the same 20,000 demands on the
+      fleet's 10,000 available rows and ``get_nodes_to_launch`` for the
+      fleet's three node kinds and an 8-bundle STRICT_SPREAD group:
+      outputs equal to ``device="cpu"``'s, ms per call and the device
+      time of one more call of each (``torch.profiler``);
+  R3. a ``LocalCluster`` of 64 raylets on the card (the fleet's first 64
+      node shapes) and ``R3_LEASES`` leases from a lessee with the
+      reference submitter's protocol, each spillback re-sent with
+      ``grant_or_reject`` (``ray_tpu_torch.tools.profile_cluster``):
+      every feasible lease granted exactly once; leases/s, p50/p99 lease
+      latency, spillbacks and rejections;
+
 and the transformer's forward pass (``Transformer``) at the width of
 ``bench_model.py``'s single-chip model (vocab 32,000, d_model 1024, 16
 heads, d_ff 4096; ``ray_tpu_torch.models.bench``):
@@ -522,6 +545,274 @@ def phase_sinkhorn(tb, sb):
         f"availability, rows within counts, bit-equal to device='cpu'")
     return ms
 
+
+# -- the raylet's scheduling plane and the autoscaler -------------------------
+
+def _settle(loop, timeout=600.0):
+    """Wait until ``loop`` has run everything posted to it, including
+    what its handlers posted on the way."""
+    import threading
+    for _ in range(10_000):
+        done, idle = threading.Event(), []
+
+        def probe():
+            idle.append(not loop._queue)
+            done.set()
+        loop.post(probe, "smoke.settle")
+        if not done.wait(timeout):
+            raise AssertionError(f"loop {loop.name} did not answer")
+        if idle[0]:
+            return
+    raise AssertionError(f"loop {loop.name} never went idle")
+
+
+def _reply_kind(res):
+    if "worker" in res:
+        return "grant"
+    if "retry_at" in res:
+        return "spill:" + res["retry_at"].hex()
+    if res.get("infeasible"):
+        return "infeasible"
+    if res.get("backlog"):
+        return "backlog"
+    return "rejected"
+
+
+def phase_raylet(torch, cf, sb):
+    """R1: one ``Raylet`` on the card, its view at Path B's 10,000 nodes
+    (its own row is the fleet's first node with neither TPU nor GPU,
+    which CPU-only classes do not avoid; the other 9,999 rows arrive in
+    one full ``update_resource_usage``), a burst of 20,000 leases in Path
+    B's 64 classes through ``request_worker_lease_batch`` (batches of
+    100), every reply held to a ``Raylet(device="cpu")`` fed the same
+    view and burst.  The tick
+    knobs are set out of reach while the burst is queued, then one
+    ``schedule_and_dispatch`` is posted to each loop; the granted workers
+    go back and the backlog is resubmitted, a round a tick, until no
+    backlog is left or a round places nothing."""
+    from ray_tpu_torch._private import ids
+    from ray_tpu_torch._private.config import get_config
+    from ray_tpu_torch._private.metrics_agent import get_metrics_registry
+    from ray_tpu_torch._private.raylet import Raylet
+    from ray_tpu_torch.tools.profile_cluster import (bench_names,
+                                                     make_specs, row_dict)
+    rng = np.random.default_rng(7)
+    avail, total, demand, _, _, _ = sb.build_problem(rng)
+    names = bench_names(total)
+    cfg = get_config()
+    saved = (cfg.event_loop_tick_ms, cfg.scheduler_wakeup_debounce_ms)
+    cfg.event_loop_tick_ms, cfg.scheduler_wakeup_debounce_ms = 10 ** 9, 1e9
+    raylets = {}
+    try:
+        local = int(np.flatnonzero((total[:, 2] == 0) &
+                                   (total[:, 3] == 0))[0])
+        for dev in ("cuda", "cpu"):
+            raylets[dev] = Raylet(None, row_dict(names, total[local]),
+                                  node_name=f"r1-{dev}", device=dev)
+        rows = {ids.NodeID(i.to_bytes(16, "big")): {
+            "available": row_dict(names, avail[i]),
+            "total": row_dict(names, total[i])}
+            for i in range(total.shape[0]) if i != local}
+        t0 = time.perf_counter()
+        for r in raylets.values():
+            r.update_resource_usage({"rows": rows, "full": True})
+            _settle(r.loop)
+        n_view = raylets["cuda"].cluster_view.num_nodes()
+        log(f"[R1] two raylets' views at {n_view} nodes in "
+            f"{time.perf_counter() - t0:.1f} s")
+        classes = rng.integers(0, 64, size=20_000)
+        specs = make_specs(names, demand, classes)
+        replies = {dev: {} for dev in raylets}
+        workers = {dev: {} for dev in raylets}
+
+        def recorder(dev, keys):
+            def reply(rep):
+                for key, res in zip(keys, rep["results"]):
+                    replies[dev].setdefault(key, []).append(_reply_kind(res))
+                    if "worker" in res:
+                        workers[dev][key] = res["worker"]
+            return reply
+
+        card = raylets["cuda"]
+        label = card.cluster_task_manager._node_label
+        cf.class_fill.launches = 0
+        pending, tick_host_ms, rounds = list(range(len(specs))), [], 0
+        while pending:
+            for dev, r in raylets.items():
+                for i in range(0, len(pending), 100):
+                    keys = pending[i:i + 100]
+                    r.request_worker_lease_batch([specs[k] for k in keys],
+                                                 recorder(dev, keys))
+            for dev, r in raylets.items():
+                t0 = time.perf_counter()
+                r.loop.post(r.cluster_task_manager.schedule_and_dispatch,
+                            "cluster.schedule")
+                _settle(r.loop)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    tick_host_ms.append((time.perf_counter() - t0) * 1e3)
+            if replies["cuda"] != replies["cpu"]:
+                diff = [k for k in replies["cpu"]
+                        if replies["cuda"].get(k) != replies["cpu"][k]]
+                raise AssertionError(
+                    f"round {rounds}: {len(diff)} leases got another reply "
+                    f"on the card than on the CPU (first {diff[:3]}: "
+                    f"{[replies['cuda'].get(k) for k in diff[:3]]} vs "
+                    f"{[replies['cpu'][k] for k in diff[:3]]})")
+            rounds += 1
+            for dev, r in raylets.items():
+                for key in sorted(workers[dev]):
+                    r.return_worker(workers[dev].pop(key))
+                _settle(r.loop)
+            backlog = [k for k in pending if replies["cpu"][k][-1] ==
+                       "backlog"]
+            if len(backlog) == len(pending):
+                break
+            pending = backlog
+        launches = cf.class_fill.launches
+        mgr = card.cluster_task_manager
+        ts, st = dict(mgr.tick_stats), dict(mgr._solver.stats)
+        hist = get_metrics_registry().get_value(
+            "ray_tpu.scheduler.tick_latency", (("node", label),))
+        handler_errors = sum(h["errors"]
+                             for r in raylets.values()
+                             for h in r.loop.handler_stats.values())
+        if launches != st["ticks"] or launches < 1:
+            raise AssertionError(f"class_fill launched {launches} times for "
+                                 f"{st['ticks']} batched ticks ({ts})")
+        for r in raylets.values():
+            t = r.cluster_task_manager.tick_stats
+            if t["jnp_fallbacks"] or t["device_errors"] or \
+                    t["dispatch_errors"]:
+                raise AssertionError(f"tick_stats {t}")
+        if handler_errors or st["fallbacks"]:
+            raise AssertionError(f"{handler_errors} handler errors, solver "
+                                 f"{st}")
+        final = [v[-1].split(":")[0] for v in replies["cpu"].values()]
+        decisions = {kind: final.count(kind) for kind in
+                     ("grant", "spill", "backlog", "infeasible", "rejected")}
+        series = [line for line in
+                  get_metrics_registry().render_prometheus().splitlines()
+                  if line.startswith("ray_tpu_scheduler_") and
+                  f'node="{label}"' in line]
+        hist_ms = hist.sum / hist.count * 1e3
+        log(f"[R1] {len(specs)} leases, {rounds} rounds: replies on the card "
+            f"equal the CPU raylet's for every lease; final {decisions}; "
+            f"busy ticks {ts['busy_ticks']}, ms per busy tick "
+            f"{hist_ms:.3f} (histogram) / host "
+            f"{[round(x, 3) for x in tick_host_ms]}; class_fill launches "
+            f"{launches}; tick_stats {ts}; solver {st}")
+        log(f"[R1] {len(series)} ray_tpu_scheduler_* series for node "
+            f"{label}:\n  " + "\n  ".join(series))
+        return {"launches": launches, "tick_ms": hist_ms,
+                "tick_host_ms": tick_host_ms, "decisions": decisions,
+                "rounds": rounds, "tick_stats": ts, "solver": st}
+    finally:
+        for r in raylets.values():
+            r.shutdown()
+        cfg.event_loop_tick_ms, cfg.scheduler_wakeup_debounce_ms = saved
+
+
+def phase_autoscaler(torch, cf, sb):
+    """R2: the autoscaler's pack mode at 10,000 nodes: the R1 burst's
+    20,000 demands packed onto the bench fleet's available rows
+    (``get_bin_pack_residual``), then ``get_nodes_to_launch`` with node
+    types for the fleet's three kinds (10,000 each at most) and one
+    8-bundle STRICT_SPREAD group; every output equal to
+    ``device="cpu"``'s, ms per call after one warm-up over 3 calls."""
+    from ray_tpu_torch.autoscaler import resource_demand_scheduler as rds
+    from ray_tpu_torch.tools.profile_cluster import bench_names, row_dict
+    from ray_tpu_torch.tools.timing import device_profile
+    rng = np.random.default_rng(7)
+    avail, total, demand, _, _, _ = sb.build_problem(rng)
+    names = bench_names(total)
+    classes = rng.integers(0, 64, size=20_000)
+    nodes = [row_dict(names, avail[i]) for i in range(avail.shape[0])]
+    rows = [row_dict(names, demand[c]) for c in range(demand.shape[0])]
+    demands = [rows[int(c)] for c in classes]
+    types = {"small": {"resources": {"CPU": 4, "memory": 16},
+                       "max_workers": 10_000},
+             "big": {"resources": {"CPU": 64, "memory": 256},
+                     "max_workers": 10_000},
+             "accel": {"resources": {"CPU": 8, "memory": 64, "TPU": 4},
+                       "max_workers": 10_000}}
+    launch_args = dict(
+        node_type_counts={}, launching_nodes={},
+        resource_demands=demands,
+        unused_resources_by_node={f"n{i}": n for i, n in enumerate(nodes)},
+        pending_placement_groups=[{"strategy": "STRICT_SPREAD",
+                                   "bundles": [{"CPU": 1}] * 8}])
+    scheds = {dev: rds.ResourceDemandScheduler(types, max_workers=10_000,
+                                               device=dev)
+              for dev in ("cuda", "cpu")}
+    before = dict(rds.kernel_stats)
+    cf.class_fill.launches = 0
+    residual = rds.get_bin_pack_residual(nodes, demands, device="cuda")
+    launch = scheds["cuda"].get_nodes_to_launch(**launch_args)
+    ms_residual = _timed_calls(
+        lambda: rds.get_bin_pack_residual(nodes, demands, device="cuda"), 3)
+    ms_launch = _timed_calls(
+        lambda: scheds["cuda"].get_nodes_to_launch(**launch_args), 3)
+    launches = cf.class_fill.launches
+    solves = rds.kernel_stats["kernel_solves"] - before["kernel_solves"]
+    t0 = time.perf_counter()
+    want_residual = rds.get_bin_pack_residual(nodes, demands, device="cpu")
+    want_launch = scheds["cpu"].get_nodes_to_launch(**launch_args)
+    cpu_s = time.perf_counter() - t0
+    if residual[0] != want_residual[0] or residual[1] != want_residual[1]:
+        raise AssertionError("get_bin_pack_residual on the card differs "
+                             "from device='cpu'")
+    if launch != want_launch:
+        raise AssertionError(f"get_nodes_to_launch on the card {launch[0]} "
+                             f"differs from device='cpu' {want_launch[0]}")
+    if solves <= 0 or rds.kernel_stats["kernel_errors"] != \
+            before["kernel_errors"] or launches != solves:
+        raise AssertionError(f"kernel_stats {rds.kernel_stats} (before "
+                             f"{before}), class_fill launches {launches}")
+    # The device's share of each call: one more call of each under
+    # torch.profiler, after the launches above were read.
+    dev_residual, ops_residual = device_profile(
+        lambda: rds.get_bin_pack_residual(nodes, demands, device="cuda"))
+    dev_launch, ops_launch = device_profile(
+        lambda: scheds["cuda"].get_nodes_to_launch(**launch_args))
+    log(f"[R2] {len(demands)} demands on {len(nodes)} nodes: residual "
+        f"{len(residual[0])} unfulfilled, {ms_residual:.2f} ms per "
+        f"get_bin_pack_residual (device {dev_residual:.3f} ms in "
+        f"{ops_residual} operations); get_nodes_to_launch {launch[0]} with "
+        f"{len(launch[1])} unfulfilled, {ms_launch:.2f} ms per call (device "
+        f"{dev_launch:.3f} ms in {ops_launch} operations); outputs equal to "
+        f"device='cpu' ({cpu_s:.1f} s there); {solves} kernel solves, "
+        f"class_fill launches {launches}")
+    return {"launches": launches, "ms_residual": ms_residual,
+            "ms_launch": ms_launch, "device_ms_residual": dev_residual,
+            "device_ms_launch": dev_launch,
+            "unfulfilled": len(residual[0]), "to_launch": launch[0]}
+
+
+def phase_cluster(torch, cf):
+    """R3: ``profile_cluster.cluster_burst`` on the card: a burst of
+    ``R3_LEASES`` leases across a ``LocalCluster`` of 64 raylets from a
+    lessee with the reference submitter's protocol, each spillback re-sent
+    at once with ``grant_or_reject``.  Every feasible lease granted exactly
+    once, no raylet error, no solver fallback, one ``class_fill`` launch
+    per batched tick."""
+    from ray_tpu_torch.tools import profile_cluster as pc
+    cf.class_fill.launches = 0
+    out = pc.cluster_burst(pc.R3_LEASES, "cuda")
+    launches = out["launches"] = cf.class_fill.launches
+    if launches != out["solver"]["ticks"] or launches < 1:
+        raise AssertionError(f"R3: class_fill launched {launches} times, "
+                             f"solvers {out['solver']}")
+    log(f"[R3] {out['leases']} leases over {pc.N_RAYLETS} raylets in "
+        f"{out['wall_s']:.1f} s: {out['granted']} granted exactly once, "
+        f"{out['infeasible']} infeasible; {out['leases_per_s']:.0f} "
+        f"leases/s, latency p50 {out['p50_ms']:.2f} ms p99 "
+        f"{out['p99_ms']:.2f} ms; {out['spillbacks']} spillbacks, "
+        f"{out['rejections']} rejected at their target, "
+        f"{out['backlog_replies']} backlog replies; batched ticks on "
+        f"{out['raylets_with_batched_ticks']} raylets, class_fill launches "
+        f"{launches}; solvers {out['solver']}")
+    return out
 
 # -- the transformer's forward pass ------------------------------------------
 
@@ -1265,7 +1556,9 @@ def main() -> int:
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import class_fill as cf
     for name in ("ops.ring_attention", "parallel.collectives",
-                 "parallel.mesh", "parallel.pipeline"):
+                 "parallel.mesh", "parallel.pipeline", "_private.cluster",
+                 "_private.convert", "_private.raylet",
+                 "autoscaler.resource_demand_scheduler"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
@@ -1296,6 +1589,9 @@ def main() -> int:
     m3 = phase_moe_forward(torch, tt, tm, fa, mb)
     bundle_ms = phase_bundles(tb, tbp, tres, sb)
     sinkhorn_ms = phase_sinkhorn(tb, sb)
+    r1 = phase_raylet(torch, cf, sb)
+    r2 = phase_autoscaler(torch, cf, sb)
+    r3 = phase_cluster(torch, cf)
     fb, fb128 = phase_flash_bwd(torch, fa, mb)
     t1 = phase_train_f32(torch, tt, fa, mb, mb.CONFIG, "train f32")
     t3f = phase_train_f32(torch, tt, fa, mb, mb.MOE_CONFIG, "moe train f32")
@@ -1345,7 +1641,8 @@ def main() -> int:
         "route": "cuda",
         "source": "ray_tpu_torch/csrc/class_fill.cu",
         "replaces": "ray_tpu/scheduler/jax_backend.py:374",
-        "launches": launches_a + launches_b,
+        "launches": (launches_a + launches_b + r1["launches"] +
+                     r2["launches"] + r3["launches"]),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -1430,8 +1727,34 @@ def main() -> int:
                         "pp_train": p3["ops_per_step"]},
                     "bundles_ms_per_call": bundle_ms,
                     "sinkhorn_ms_per_tick": sinkhorn_ms,
+                    "runtime_tick_ms": r1["tick_ms"],
+                    "runtime_tick_host_ms": r1["tick_host_ms"],
+                    "runtime_rounds": r1["rounds"],
+                    "runtime_decisions": r1["decisions"],
+                    "runtime_tick_stats": r1["tick_stats"],
+                    "runtime_solver_stats": r1["solver"],
+                    "autoscaler_ms_per_call": r2["ms_launch"],
+                    "autoscaler_residual_ms_per_call": r2["ms_residual"],
+                    "autoscaler_device_ms_per_call": r2["device_ms_launch"],
+                    "autoscaler_residual_device_ms_per_call":
+                        r2["device_ms_residual"],
+                    "autoscaler_unfulfilled": r2["unfulfilled"],
+                    "autoscaler_to_launch": r2["to_launch"],
+                    "cluster_leases": r3["leases"],
+                    "cluster_leases_per_s": r3["leases_per_s"],
+                    "cluster_lease_p50_ms": r3["p50_ms"],
+                    "cluster_lease_p99_ms": r3["p99_ms"],
+                    "cluster_spillbacks": r3["spillbacks"],
+                    "cluster_rejections": r3["rejections"],
+                    "cluster_batched_raylets":
+                        r3["raylets_with_batched_ticks"],
+                    "cluster_infeasible": r3["infeasible"],
+                    "cluster_wall_s": r3["wall_s"],
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
+                                 "runtime": r1["launches"],
+                                 "autoscaler": r2["launches"],
+                                 "cluster": r3["launches"],
                                  "forward": launches_m,
                                  "moe_forward": m3["launches"],
                                  "train_forward": t2["launches"][0],

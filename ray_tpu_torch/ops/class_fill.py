@@ -31,6 +31,7 @@ over classes.  ``class_fill`` takes it only for tensors on the CPU.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -207,7 +208,8 @@ def _launch(av_t, total_t, demand, counts, accel_class, accel_node,
     if err != 0:
         raise RuntimeError(f"class_fill kernel launch failed: CUDA error "
                            f"{err}")
-    class_fill.launches += 1
+    with _launches_lock:    # raylets' loop threads launch concurrently
+        class_fill.launches += 1
     return av_out, allocs
 
 
@@ -241,3 +243,4 @@ def class_fill(av_t, total_t, demand, counts, accel_class, accel_node,
 
 # Launches of the CUDA kernel in this process (the CPU path never counts).
 class_fill.launches = 0
+_launches_lock = threading.Lock()

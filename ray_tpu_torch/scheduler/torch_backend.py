@@ -48,6 +48,8 @@ import torch
 
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.device import resolve_device
+from ray_tpu_torch._private.metrics_agent import (get_metrics_registry,
+                                                  record_internal)
 from ray_tpu_torch.ops.class_fill import (_BIG, _COST_BUCKETS,
                                           _NUM_BUCKETS, _UTIL_LEVELS,
                                           class_fill)
@@ -779,7 +781,8 @@ class DeviceRuntimeSolver:
     # Hard bound on interned class rows; past it the tick returns None.
     _MAX_CLASS_ROWS = 4096
 
-    def __init__(self, locality_provider=None, device=None):
+    def __init__(self, node_label: str = "", locality_provider=None,
+                 device=None):
         self.device = resolve_device(device)
         self._state: Optional[dict] = None
         # scheduling_class -> demand row.
@@ -796,9 +799,22 @@ class DeviceRuntimeSolver:
         self._locality_provider = locality_provider
         # True when the LAST solve used a nonzero cost matrix.
         self.last_cost_active = False
+        # sharded_ticks and shard_fallbacks stay 0 until the solve is
+        # sharded over several devices (ROADMAP A.7); they are kept so
+        # that the exported series are the reference's.
         self.stats = {"ticks": 0, "full_syncs": 0, "row_deltas": 0,
                       "fallbacks": 0, "class_evictions": 0,
-                      "cost_ticks": 0}
+                      "cost_ticks": 0, "sharded_ticks": 0,
+                      "shard_fallbacks": 0}
+        # Labelled by the owning node: one solver per raylet.
+        labels = {"node": node_label} if node_label else {}
+
+        def _collect(solver):
+            for k, v in solver.stats.items():
+                record_internal(f"ray_tpu.scheduler.{k}", v, **labels)
+            record_internal("ray_tpu.scheduler.interned_classes",
+                            len(solver._class_reqs), **labels)
+        get_metrics_registry().register_collector(self, _collect)
 
     # -- public ----------------------------------------------------------
     def solve(self, view, specs: Sequence) -> Optional[List]:

@@ -480,6 +480,30 @@ class TestDeviceSolverCostTerms:
         assert not solver.last_cost_active
 
 
+def test_solver_collector_series_match_jax():
+    """ROADMAP C.3: a solver labelled by node exports the reference's
+    series (names, labels and values) through the metrics registry."""
+    from ray_tpu._private.metrics_agent import get_metrics_registry as jreg
+    from ray_tpu_torch._private.metrics_agent import get_metrics_registry
+    from torch_runtime_util import scheduler_series
+    label = "c3solver0001"
+    solvers = (jb.DeviceRuntimeSolver(node_label=label),
+               tb.DeviceRuntimeSolver(node_label=label, device="cpu"))
+    for solver, res, pol in zip(solvers, (jres, tres), (jpolicy, tpolicy)):
+        view = res.ClusterResourceView()
+        for i in range(3):
+            view.add_node(f"n{i}", res.NodeResources({"CPU": 4.0}))
+
+        class Spec:
+            resources = res.ResourceRequest({"CPU": 1.0})
+            scheduling_options = pol.SchedulingOptions.hybrid()
+            scheduling_class = 61001
+        assert solver.solve(view, [Spec() for _ in range(5)]) is not None
+    want = scheduler_series(jreg(), label)
+    got = scheduler_series(get_metrics_registry(), label)
+    assert got == want and len(want) == 9
+
+
 # -- hygiene -----------------------------------------------------------------
 
 def test_import_pulls_in_no_jax_and_no_reference_package():
