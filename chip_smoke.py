@@ -39,11 +39,31 @@ mode (``ray_tpu_torch._private``, ``ray_tpu_torch.autoscaler``):
       outputs equal to ``device="cpu"``'s, ms per call and the device
       time of one more call of each (``torch.profiler``);
   R3. a ``LocalCluster`` of 64 raylets on the card (the fleet's first 64
-      node shapes) and ``R3_LEASES`` leases from a lessee with the
-      reference submitter's protocol, each spillback re-sent with
+      node shapes) and ``R3_LEASES`` leases (20,000 of the configuration's
+      100,000, to keep the run's wall) from a lessee with the reference
+      submitter's protocol, each spillback re-sent with
       ``grant_or_reject`` (``ray_tpu_torch.tools.profile_cluster``):
       every feasible lease granted exactly once; leases/s, p50/p99 lease
       latency, spillbacks and rejections;
+
+the task API on thread workers through ``ray_tpu_torch.init()`` on the
+card (``ray_tpu_torch.tools.profile_tasks``), each raylet's batched
+tick running ``class_fill``:
+
+  C1. the JAX package's ``bench_runtime.py`` single-node rows, nothing
+      cut: one head raylet with ``os.cpu_count()`` CPUs, 200 warm-up and
+      10,000 no-op tasks (tasks/s), the submit-to-running latency p50 and
+      p99 of 2,000, one task with 10,000 ``ObjectRef`` arguments from
+      ``put``, one with 3,000 returns, one ``get`` of 10,000 refs; every
+      value checked, at least one ``class_fill`` launch, no fallback, no
+      device error;
+  C2. R3's cluster (64 raylets, the fleet's first 64 node shapes) under
+      ``init(_cluster=...)`` and 100,000 tasks of one no-op function in
+      R3's 64 classes (``.options``), less the classes no node fits (their
+      count and share printed as a cut), through the real submitter: every
+      task returns its index, read once; tasks/s, the wall, p50/p99 from
+      submit to a sealed result, launches and batched ticks a raylet,
+      spillbacks and rejections, the peak count of worker threads;
 
 and the transformer's forward pass (``Transformer``) at the width of
 ``bench_model.py``'s single-chip model (vocab 32,000, d_model 1024, 16
@@ -132,6 +152,9 @@ FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 # P3's microbatches: 4 of 2 sequences each at bench_model.py's batch of 8.
 PP_MICRO = 4
+# R3's leases here: 20,000 of the configuration's 100,000 (C2 drives the
+# same cluster at 100,000 tasks; ``tools.profile_cluster`` runs R3 whole).
+R3_LEASES = 20_000
 
 
 def log(*a):
@@ -789,6 +812,59 @@ def phase_autoscaler(torch, cf, sb):
             "unfulfilled": len(residual[0]), "to_launch": launch[0]}
 
 
+def phase_tasks_single(cf):
+    """C1: ``profile_tasks.single_node`` on the card (module docstring);
+    every value is checked inside."""
+    from ray_tpu_torch.tools import profile_tasks as pt
+    cf.class_fill.launches = 0
+    out = pt.single_node("cuda")
+    out["launches"] = cf.class_fill.launches
+    if out["launches"] < 1 or out["launches"] != out["batched_ticks"]:
+        raise AssertionError(f"C1: class_fill launched {out['launches']} "
+                             f"times for {out['batched_ticks']} batched "
+                             "ticks")
+    log(f"[C1] one raylet, {out['num_cpus']} CPUs: {out['tasks']} no-op "
+        f"tasks at {out['tasks_per_s']:.0f} tasks/s; submit to running "
+        f"p50 {out['latency_p50_ms']:.3f} ms p99 "
+        f"{out['latency_p99_ms']:.3f} ms; {out['args']} args in "
+        f"{out['args_s']:.3f} s, {out['returns']} returns in "
+        f"{out['returns_s']:.3f} s, a get of {out['get_many']} in "
+        f"{out['get_many_s']:.3f} s, all values right; batched ticks "
+        f"{out['batched_ticks']} of {out['busy_ticks']} busy, class_fill "
+        f"launches {out['launches']}; jnp_fallbacks "
+        f"{out['jnp_fallbacks']}, device_errors {out['device_errors']}; "
+        f"lease stats {out['lease_stats']}; peak workers "
+        f"{out['peak_workers']}")
+    return out
+
+
+def phase_tasks_cluster(cf):
+    """C2: ``profile_tasks.cluster_tasks`` on the card: 100,000 tasks
+    over 64 raylets, every kept one's result its index."""
+    from ray_tpu_torch.tools import profile_tasks as pt
+    cf.class_fill.launches = 0
+    out = pt.cluster_tasks(pt.C2_TASKS, pt.C2_RAYLETS, "cuda")
+    out["launches"] = cf.class_fill.launches
+    if out["launches"] < 1 or \
+            out["launches"] != sum(out["batched_ticks"].values()):
+        raise AssertionError(f"C2: class_fill launched {out['launches']} "
+                             f"times, batched ticks {out['batched_ticks']}")
+    log(f"[C2] {out['raylets']} raylets, {out['cpus']:.0f} CPUs: "
+        f"{out['submitted']} of {out['tasks']} tasks submitted (cut: "
+        f"{out['dropped_infeasible']} tasks, share "
+        f"{out['dropped_share']:.4f}, of {out['dropped_classes']} classes "
+        f"no node fits), every result its index, read once; "
+        f"{out['tasks_per_s']:.0f} tasks/s, wall {out['wall_s']:.1f} s "
+        f"(submitting {out['submit_s']:.1f} s); submit to sealed p50 "
+        f"{out['latency_p50_ms']:.1f} ms p99 {out['latency_p99_ms']:.1f} "
+        f"ms; class_fill launches {out['launches']} (batched ticks by "
+        f"raylet {out['batched_ticks']}); spillbacks {out['spillbacks']}, "
+        f"rejected at their target {out['spillback_rejections']}, "
+        f"submitter {out['submitter']}; peak worker threads "
+        f"{out['peak_workers']} (each raylet's peak, summed)")
+    return out
+
+
 def phase_cluster(torch, cf):
     """R3: ``profile_cluster.cluster_burst`` on the card: a burst of
     ``R3_LEASES`` leases across a ``LocalCluster`` of 64 raylets from a
@@ -798,7 +874,7 @@ def phase_cluster(torch, cf):
     per batched tick."""
     from ray_tpu_torch.tools import profile_cluster as pc
     cf.class_fill.launches = 0
-    out = pc.cluster_burst(pc.R3_LEASES, "cuda")
+    out = pc.cluster_burst(R3_LEASES, "cuda")
     launches = out["launches"] = cf.class_fill.launches
     if launches != out["solver"]["ticks"] or launches < 1:
         raise AssertionError(f"R3: class_fill launched {launches} times, "
@@ -1558,6 +1634,8 @@ def main() -> int:
     for name in ("ops.ring_attention", "parallel.collectives",
                  "parallel.mesh", "parallel.pipeline", "_private.cluster",
                  "_private.convert", "_private.raylet",
+                 "_private.core_worker", "_private.worker",
+                 "remote_function", "tools.profile_tasks",
                  "autoscaler.resource_demand_scheduler"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
@@ -1592,6 +1670,8 @@ def main() -> int:
     r1 = phase_raylet(torch, cf, sb)
     r2 = phase_autoscaler(torch, cf, sb)
     r3 = phase_cluster(torch, cf)
+    c1 = phase_tasks_single(cf)
+    c2 = phase_tasks_cluster(cf)
     fb, fb128 = phase_flash_bwd(torch, fa, mb)
     t1 = phase_train_f32(torch, tt, fa, mb, mb.CONFIG, "train f32")
     t3f = phase_train_f32(torch, tt, fa, mb, mb.MOE_CONFIG, "moe train f32")
@@ -1642,7 +1722,8 @@ def main() -> int:
         "source": "ray_tpu_torch/csrc/class_fill.cu",
         "replaces": "ray_tpu/scheduler/jax_backend.py:374",
         "launches": (launches_a + launches_b + r1["launches"] +
-                     r2["launches"] + r3["launches"]),
+                     r2["launches"] + r3["launches"] + c1["launches"] +
+                     c2["launches"]),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -1750,11 +1831,23 @@ def main() -> int:
                         r3["raylets_with_batched_ticks"],
                     "cluster_infeasible": r3["infeasible"],
                     "cluster_wall_s": r3["wall_s"],
+                    "tasks_single": {k: c1[k] for k in (
+                        "num_cpus", "tasks_per_s", "latency_p50_ms",
+                        "latency_p99_ms", "args_s", "returns_s",
+                        "get_many_s", "batched_ticks", "launches")},
+                    "tasks_cluster": {k: c2[k] for k in (
+                        "submitted", "dropped_infeasible", "dropped_share",
+                        "tasks_per_s", "wall_s", "submit_s",
+                        "latency_p50_ms", "latency_p99_ms", "launches",
+                        "batched_ticks", "spillbacks",
+                        "spillback_rejections", "peak_workers")},
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "runtime": r1["launches"],
                                  "autoscaler": r2["launches"],
                                  "cluster": r3["launches"],
+                                 "tasks_single": c1["launches"],
+                                 "tasks_cluster": c2["launches"],
                                  "forward": launches_m,
                                  "moe_forward": m3["launches"],
                                  "train_forward": t2["launches"][0],

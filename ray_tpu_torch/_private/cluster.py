@@ -6,7 +6,11 @@ reference GCS does for in-process raylets (``GcsServer._poll_and_broadcast``
 in ``ray_tpu/gcs/server.py``): a thread polls every raylet's
 ``get_resource_report()`` every
 ``gcs_resource_broadcast_period_milliseconds`` and sends each raylet the
-full batch of rows, with the nodes removed since the last round.
+full batch of rows, with the nodes removed since the last round.  It
+also holds what the driver's runtime reads from the GCS: the function
+table (the GCS KV's ``fn:`` rows, ``function_table``) and the node table
+(``nodes``, ``cluster_resources``, ``available_resources``), and wires
+the driver's core worker into every raylet (``attach_core_worker``).
 
     cluster = LocalCluster(device="cpu")          # "cuda" by default
     head = cluster.add_node({"CPU": 4})
@@ -40,6 +44,8 @@ class LocalCluster:
         self._raylets: Dict = {}            # node_id -> Raylet, in join order
         self._removed_pending: List = []
         self._stop = threading.Event()
+        self.core_worker = None
+        self.function_table = FunctionTable()
         period = get_config().gcs_resource_broadcast_period_milliseconds
         self._thread = threading.Thread(
             target=self._broadcast_loop, args=(period / 1000.0,),
@@ -66,6 +72,7 @@ class LocalCluster:
         raylet = Raylet(self, resources, node_name=node_name, labels=labels,
                         device=self.device)
         with self._lock:
+            raylet.core_worker = self.core_worker
             self._raylets[raylet.node_id] = raylet
         self.broadcast_now()
         return raylet
@@ -77,6 +84,28 @@ class LocalCluster:
             self._removed_pending.append(raylet.node_id)
         raylet.shutdown()
         self.broadcast_now()
+
+    def attach_core_worker(self, core_worker) -> None:
+        """Make ``core_worker`` the owner every raylet's tasks report to
+        and read their object arguments from."""
+        with self._lock:
+            self.core_worker = core_worker
+            for raylet in self._raylets.values():
+                raylet.core_worker = core_worker
+
+    # ---- the node table (the GCS's node and resource managers) ---------
+    def nodes(self) -> List[dict]:
+        return [raylet.node_info() for raylet in self.raylets()]
+
+    def cluster_resources(self) -> Dict[str, float]:
+        return _sum_rows(r.local_resources.to_float_dict("total")
+                         for r in self.raylets())
+
+    def available_resources(self) -> Dict[str, float]:
+        """Read from each raylet's own ledger, as the reference reads
+        in-process raylets (``live_available_resources``)."""
+        return _sum_rows(r.local_resources.to_float_dict("available")
+                         for r in self.raylets())
 
     def broadcast_now(self) -> None:
         """One synchronous poll-and-broadcast round."""
@@ -107,3 +136,31 @@ class LocalCluster:
             self._raylets.clear()
         for raylet in raylets:
             raylet.shutdown()
+
+
+def _sum_rows(rows) -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    for row in rows:
+        for k, v in row.items():
+            out[k] = out.get(k, 0.0) + v
+    return out
+
+
+class FunctionTable:
+    """The function table: ``put``/``get`` of exported function blobs
+    by key, the GCS KV's part that ``FunctionManager`` uses."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._rows: Dict[bytes, bytes] = {}
+
+    def put(self, key: bytes, value: bytes, overwrite: bool = True) -> bool:
+        with self._lock:
+            if not overwrite and key in self._rows:
+                return False
+            self._rows[key] = value
+            return True
+
+    def get(self, key: bytes) -> Optional[bytes]:
+        with self._lock:
+            return self._rows.get(key)

@@ -438,9 +438,11 @@ class ClusterTaskManager:
 
     def _arg_locality_bytes(self, specs) -> Dict:
         """Per-node argument bytes for a class's queued specs, the
-        arg-locality cost signal.  The raylet has no object directory
-        until the device-object plane is ported, so no node holds
-        argument bytes yet."""
+        arg-locality cost signal.  Every object the port holds is inline
+        in its owner's memory store, and inline objects have no
+        directory row, so the reference gives ``{}`` for them too
+        (``ray_tpu/_private/cluster_task_manager.py:510-524``); node
+        copies come with the object plane (ROADMAP A.4b.2)."""
         return {}
 
     def _requeue_all(self, work) -> None:

@@ -2,9 +2,11 @@
 
 A copy of the fields of ``ray_tpu._private.config.Config`` that the
 ported modules read, with the same names and defaults: the scheduler
-fields, the placement-group and autoscaler packing fields, and the knobs
+fields, the placement-group and autoscaler packing fields, the knobs
 of the raylet's scheduling plane (event loop, wakeup debounce, worker
-pool, resource broadcast).  One value differs by design:
+pool, resource broadcast) and those of the task path (the submitter's
+leases, the owner's memory store, retries, lineage, the thread workers'
+start slots).  One value differs by design:
 ``scheduler_backend`` names the device backend ``"torch"`` where the
 reference says ``"jax"``.  The rest of that config belongs to modules the
 port does not have yet.
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+from typing import Optional
 
 
 @dataclasses.dataclass
@@ -50,7 +53,54 @@ class Config:
     #: the window fold into that one tick.  0 = post the tick at once.
     scheduler_wakeup_debounce_ms: float = 1.0
 
+    # ------ lease protocol (the direct task submitter) ------
+    #: Max lease requests in flight per scheduling class
+    #: (ray_config_def.h:342).  Batched lease requests count each
+    #: entry against this cap.
+    max_pending_lease_requests_per_scheduling_category: int = 10
+    #: Max lease entries coalesced into one request_worker_lease_batch
+    #: round trip.  1 disables batching.
+    lease_batch_size: int = 10
+    #: Retry delay for lease-batch entries the raylet returned as
+    #: ``backlog`` when nothing else re-pumps the class first.
+    lease_backlog_retry_ms: int = 20
+    #: How long an idle leased worker is parked submitter-side before
+    #: its lease goes back to the raylet.  0 = return it at once.
+    worker_lease_keepalive_ms: int = 0
+    #: Submit-side flow control: past this class-queue depth the
+    #: submitting thread yields the GIL (``time.sleep(0)``).  0 disables.
+    submit_backpressure_depth: int = 64
+
+    # ------ object store ------
+    #: Objects larger than this leave the owner's in-process memory
+    #: store for a node store (the reference's 100KB promotion
+    #: threshold in CoreWorker::Put).  The port has no node store yet:
+    #: such objects raise ``NotImplementedError``.
+    max_direct_call_object_size: int = 100 * 1024
+
+    # ------ core worker / task path ------
+    #: Args at or below this size are inlined into the task spec.
+    task_args_inline_bytes_limit: int = 100 * 1024
+    #: Default max retries for normal tasks (reference: default 3).
+    task_max_retries: int = 3
+    #: Lineage pinning for reconstruction (ray_config_def.h:97,110).
+    lineage_pinning_enabled: bool = True
+    #: Max lineage bytes kept per owner before the oldest pins go.
+    max_lineage_bytes: int = 1024 * 1024 * 1024
+
     # ------ worker pool ------
+    #: "thread" = executor threads in the node's process (the only
+    #: mode of the port so far); "process" raises.
+    worker_process_mode: str = "thread"
+    #: Soft cap of idle workers kept alive per node (ray_config_def.h:129).
+    num_workers_soft_limit: int = 64
+    #: Maximum workers starting up concurrently on one node (a throttle
+    #: on starts, not a total cap).
+    maximum_startup_concurrency: int = 64
+    #: Process-wide cap on workers in startup across every pool; a pop
+    #: over the cap returns None and the dispatch tick retries.  0
+    #: disables the gate.
+    worker_global_startup_concurrency: int = 128
     #: Warm workers started ahead of a queued burst (0 = lazily in
     #: pop_worker).
     num_prestart_workers: int = 0
@@ -79,3 +129,19 @@ def get_config() -> Config:
         if _global_config is None:
             _global_config = Config()
         return _global_config
+
+
+def initialize_config(system_config: Optional[dict] = None) -> Config:
+    """A fresh config with ``system_config``'s overrides (``init``'s
+    ``_system_config``); an unknown key raises.  The reference also
+    reads ``RAY_TPU_<NAME>`` environment variables here; the port reads
+    none."""
+    global _global_config
+    cfg = Config()
+    for key, value in (system_config or {}).items():
+        if not hasattr(cfg, key):
+            raise ValueError(f"Unknown system config key: {key}")
+        setattr(cfg, key, value)
+    with _lock:
+        _global_config = cfg
+    return cfg

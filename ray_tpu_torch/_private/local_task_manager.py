@@ -5,13 +5,18 @@ the dispatch queue, the resources each leased worker holds,
 ``release_worker_resources`` and the actor-creation hand-back of
 placement-only resources.  Resources were reserved by the
 ``ClusterTaskManager`` when it chose this node, so dispatch only needs a
-worker slot.
+worker.
 
-The raylet has no object manager yet (the device-object plane comes
-later), so ``DependencyManager`` dispatches a spec whose arguments are
-all inline at once and raises ``NotImplementedError`` for one that
-passes an object by reference: it never waits for an argument it
-cannot fetch.
+``DependencyManager`` is the memory-store half of the reference's
+(``dependency_manager.h``, with ``ObjectManager.is_local_or_inline`` and
+``pull_async``, ``ray_tpu/_private/object_manager.py:296-309``,
+``:357-368``): an argument is ready once it is sealed in its owner's
+memory store (the core worker attached to this raylet), and a task
+whose arguments are not all sealed waits on ``MemoryStore.get_async``.
+That callback runs on the thread that seals the object, so it posts to
+this raylet's loop, where the waiting state is kept.  The node store,
+the pull from other nodes and the argument pins that keep a node copy
+from being spilled come with the object plane (ROADMAP A.4b.2).
 """
 
 from __future__ import annotations
@@ -22,23 +27,72 @@ from typing import Callable, Dict
 
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.task_spec import TaskSpec
+from ray_tpu_torch._private.thread_registry import loop_only
 from ray_tpu_torch.scheduler.resources import ResourceRequest
 
 
+class _Waiting:
+    __slots__ = ("spec", "reply", "missing")
+
+    def __init__(self, spec, reply, missing):
+        self.spec = spec
+        self.reply = reply
+        self.missing = missing
+
+
 class DependencyManager:
-    """Holds a task until its argument objects are node-local."""
+    """Holds a task until its argument objects are sealed in their
+    owner's memory store."""
 
     def __init__(self, raylet):
         self._raylet = raylet
+        self._waiting: Dict = {}  # token -> _Waiting, on the loop only
+
+    def _memory_store(self):
+        core = getattr(self._raylet, "core_worker", None)
+        if core is None:
+            raise RuntimeError(
+                f"raylet {self._raylet.node_id} has no core worker "
+                "attached: an object argument has no owner's memory "
+                "store to wait in")
+        return core.memory_store
 
     def wait_for_args(self, spec: TaskSpec, ready_cb: Callable[[], None]):
-        refs = spec.arg_object_ids()
-        if refs:
-            raise NotImplementedError(
-                f"task {spec.task_id} passes {len(refs)} object(s) by "
-                "reference; the raylet has no object manager until the "
-                "device-object plane is ported (ROADMAP A.5)")
-        ready_cb()
+        oids = spec.arg_object_ids()
+        if not oids:
+            ready_cb()
+            return
+        store = self._memory_store()
+        missing = [oid for oid in oids if not store.contains(oid)]
+        if not missing:
+            ready_cb()
+            return
+        # Keyed by a unique token, NOT task_id: duplicate lease requests
+        # may carry the same representative spec.
+        token = object()
+        self._waiting[token] = _Waiting(spec, ready_cb, set(missing))
+        for oid in missing:
+            store.get_async(oid, self._poster(token, oid))
+
+    def _poster(self, token, oid):
+        """The ``get_async`` callback of one argument: it runs on the
+        thread that seals the object, so it posts to this raylet's
+        loop."""
+        return lambda _entry: self._raylet.loop.post(
+            lambda: self._on_arg(token, oid), "dep.arg_ready")
+
+    @loop_only("raylet")
+    def _on_arg(self, token, oid):
+        state = self._waiting.get(token)
+        if state is None:
+            return
+        state.missing.discard(oid)
+        if not state.missing:
+            del self._waiting[token]
+            state.reply()
+
+    def num_waiting(self) -> int:
+        return len(self._waiting)
 
 
 class LocalTaskManager:

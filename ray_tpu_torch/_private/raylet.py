@@ -3,10 +3,11 @@
 A port of the scheduling half of ``ray_tpu._private.raylet.Raylet`` for
 the PyTorch port: the node's resources and its dirty view of the
 cluster, the event loop with the periodic scheduling tick, the worker
-pool, the local and cluster task managers, the lease protocol
-(``request_worker_lease``, ``request_worker_lease_batch``,
-``return_worker``) and the resource broadcast's receiving end
-(``update_resource_usage``).
+pool of executor threads, the local and cluster task managers, the
+lease protocol (``request_worker_lease``, ``request_worker_lease_batch``,
+``return_worker``), the resource broadcast's receiving end
+(``update_resource_usage``) and ``core_worker``, the owner whose memory
+store holds the objects its tasks pass (wired by ``LocalCluster``).
 
 The reference raylet's heartbeat thread, object store, spill manager
 and placement-group bundle two-phase commit belong to planes the port
@@ -48,6 +49,7 @@ class Raylet:
         self.local_resources = NodeResources(resources, labels=labels)
         self.cluster_view = ClusterResourceView()   # local (dirty) view
         self.loop = EventLoop(f"raylet-{self.node_id.hex()[:6]}")
+        self.core_worker = None      # wired by the cluster/driver
         self.worker_pool = WorkerPool(self)
         self.local_task_manager = LocalTaskManager(self)
         # Lease-protocol round-trip counters, rendered by the tick
@@ -167,8 +169,10 @@ class Raylet:
         if self._dead:
             return
         self._dead = True
-        self.worker_pool.shutdown()
+        # The loop first: no tick may start a worker once the pool's
+        # shutdown has taken its list of workers to stop and join.
         self.loop.stop()
+        self.worker_pool.shutdown()
 
     def debug_string(self) -> str:
         return (f"Raylet {self.node_name} ({self.node_id.hex()[:8]}): "

@@ -507,26 +507,62 @@ def test_actor_lifetime_resources_handed_back(tick_knobs, stubs):
     assert replies[0].by_lease == replies[1].by_lease == {0: [("grant",)]}
 
 
-def test_object_ref_argument_raises_not_implemented(tick_knobs, stubs):
+def test_object_ref_argument_waits_in_the_owners_memory_store(
+        tick_knobs, stubs):
+    """Two leases whose task passes an object by reference, through
+    each package's raylet: one argument already sealed in its owner's
+    memory store dispatches on the first tick; the other, sealed only
+    after its lease arrived, waits in ``get_async`` and dispatches when
+    the owner seals it.  The JAX stub's object manager is the memory-store
+    half of the reference's (``is_local_or_inline``, ``pull_async``)."""
+    import types
+
+    from ray_tpu._private import object_store as jstore
+    from ray_tpu._private import serialization as jser
+    from ray_tpu_torch._private import object_store as tstore
+    from ray_tpu_torch._private import serialization as tser
     rng = np.random.default_rng(11)
-    _, (_, stub) = _two_node_pair(stubs, rng, cpus=(4.0, 2.0))
-    fields = dict(rt.spec_fields(rng, {"CPU": 1}),
-                  args=[{"is_inline": False, "object_id": rng.bytes(24)}])
-    spec = rt.port_spec(fields)
-    with pytest.raises(NotImplementedError, match="device-object plane"):
-        stub.local_task_manager.queue_and_schedule(spec, lambda r: None)
-    # Through the tick: each failed handoff is counted and requeued, the
-    # greedy pass retries it, and past _MAX_DISPATCH_REQUEUES the lease
-    # is rejected, not left waiting.
-    replies = rt.Replies()
-    stub.request_worker_lease(spec, replies.single(0))
-    rt.tick(stub)
-    assert replies.by_lease == {0: [("rejected",)]}
-    mgr = stub.cluster_task_manager
-    assert mgr.tick_stats["dispatch_errors"] == \
-        tctm._MAX_DISPATCH_REQUEUES + 1
-    assert stub.cluster_view.node_resources(stub.node_id).to_float_dict() \
-        == {"CPU": 4.0, "memory": 8.0}
+    _, pair = _two_node_pair(stubs, rng, cpus=(4.0, 2.0))
+    oids = [rng.bytes(24), rng.bytes(24)]
+    fields = [dict(rt.spec_fields(rng, {"CPU": 1}),
+                   args=[{"is_inline": False, "object_id": oid}])
+              for oid in oids]
+    replies = (rt.Replies(), rt.Replies())
+    for stub, make, rep, store_mod, ser, idtype in zip(
+            pair, (rt.jax_spec, rt.port_spec), replies,
+            (jstore, tstore), (jser, tser),
+            (rt.jids.ObjectID, rt.tids.ObjectID)):
+        store = store_mod.MemoryStore()
+        stub.core_worker = types.SimpleNamespace(memory_store=store)
+        if stub is pair[0]:
+            stub.object_manager = types.SimpleNamespace(
+                is_local_or_inline=store.contains,
+                pull_async=lambda oid, cb, store=store: store.get_async(
+                    oid, lambda _e: cb(True)))
+        store.put(idtype(oids[0]), ser.serialize("sealed before"))
+        specs = [make(f) for f in fields]
+        for key, spec in enumerate(specs):
+            stub.request_worker_lease(spec, rep.single(key))
+        rt.tick(stub)
+        assert rep.by_lease == {0: [("grant",)]}
+        deps = stub.local_task_manager.dependency_manager
+        assert deps.num_waiting() == 1
+        # Sealed from another thread, as a worker seals a return.
+        sealer = threading.Thread(target=store.put, args=(
+            idtype(oids[1]), ser.serialize("sealed after")))
+        sealer.start()
+        sealer.join()
+        rt.settle(stub.loop)
+        assert deps.num_waiting() == 0
+    assert replies[0].by_lease == replies[1].by_lease == \
+        {0: [("grant",)], 1: [("grant",)]}
+    for stub in pair:
+        ts = stub.cluster_task_manager.tick_stats
+        assert ts["dispatch_errors"] == 0
+        # The reference's loop prints a handler's error; the port's
+        # counts it too.
+        assert all(h.get("errors", 0) == 0
+                   for h in stub.loop.handler_stats.values())
 
 
 def _view_state(view):
@@ -756,14 +792,28 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                "ray_tpu_torch._private.cluster_task_manager",
                "ray_tpu_torch._private.config",
                "ray_tpu_torch._private.convert",
+               "ray_tpu_torch._private.core_worker",
+               "ray_tpu_torch._private.direct_task_submitter",
                "ray_tpu_torch._private.event_loop",
+               "ray_tpu_torch._private.executor",
+               "ray_tpu_torch._private.function_manager",
                "ray_tpu_torch._private.ids",
                "ray_tpu_torch._private.local_task_manager",
                "ray_tpu_torch._private.metrics_agent",
+               "ray_tpu_torch._private.object_ref",
+               "ray_tpu_torch._private.object_store",
                "ray_tpu_torch._private.raylet",
+               "ray_tpu_torch._private.reference_counter",
+               "ray_tpu_torch._private.serialization",
+               "ray_tpu_torch._private.task_manager",
                "ray_tpu_torch._private.task_spec",
                "ray_tpu_torch._private.thread_registry",
+               "ray_tpu_torch._private.worker",
+               "ray_tpu_torch._private.worker_context",
                "ray_tpu_torch._private.worker_pool",
+               "ray_tpu_torch.exceptions",
+               "ray_tpu_torch.remote_function",
+               "ray_tpu_torch.runtime_context",
                "ray_tpu_torch.autoscaler",
                "ray_tpu_torch.autoscaler.resource_demand_scheduler",
                "ray_tpu_torch.util",

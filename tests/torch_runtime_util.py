@@ -193,7 +193,9 @@ def jax_spec(fields):
         opts["node_affinity_node_id"] = jids.NodeID(
             opts["node_affinity_node_id"])
     f["scheduling_options"] = jpolicy.SchedulingOptions(**opts)
-    f["args"] = [jts.TaskArg(**a) for a in f["args"]]
+    f["args"] = [jts.TaskArg(**dict(
+        a, object_id=jids.ObjectID(a["object_id"])
+        if a.get("object_id") is not None else None)) for a in f["args"]]
     f["scheduling_class"] = jts.scheduling_class_of(f["resources"],
                                                     f["scheduling_options"])
     return jts.TaskSpec(**f)
