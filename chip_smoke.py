@@ -65,6 +65,39 @@ tick running ``class_fill``:
       submit to a sealed result, launches and batched ticks a raylet,
       spillbacks and rejections, the peak count of worker threads;
 
+the object plane through ``ray_tpu_torch.init()`` on the card
+(``ray_tpu_torch.tools.profile_objects``; the launch count zeroed before
+each phase and read after it):
+
+  O1. ``bench_runtime.py``'s ``large_object_roundtrip`` row at 1 GiB:
+      cold and warm put ms and the bytes the put copied (none: the
+      store keeps views), the get's view ms and its GB/s into a
+      pre-faulted buffer, the bytes equal; a task with a 16 MiB literal
+      argument (promoted to a node-store object) and a 16 MiB return,
+      both values checked;
+  O2. ``bench_runtime.py``'s ``broadcast_object`` row: 256 MiB pulled by
+      8 raylets at once, relay on, cold and warm: GB/s, bytes served per
+      source, relay pulls, cross-node bytes, every replica byte-equal;
+  O3. 64 seeded arrays of 32 MiB (2 GiB) through one raylet's 1 GiB
+      store, spilled and read back equal: objects, bytes, batches,
+      files, create-queue waits, s/GiB each way (spill files in a
+      temporary directory the phase removes);
+  O4. an 8 MB return recomputed from lineage after its raylet is
+      removed (seconds to recover), and the same loss with lineage
+      pinning off raising ``ObjectLostError`` with the reference's
+      message;
+  O5. 2 raylets, a 4.8 MB object on B and 4 consumers of one function:
+      all on B within 3 attempts and no cross-node bytes; then the
+      object on one raylet of R3's 64 and a burst of consumers as large
+      as its CPUs (the share that ran there).  Such one-class bursts are
+      leased a task at a time and never reach the batched tick (their
+      cost launches are reported, 0); a probe of one class a consumer on
+      each cluster reaches it: a cost tick and a ``class_fill`` launch
+      with a non-zero locality cost.  No device error;
+
+each O phase also checks its raylets' error counts and that no thread of
+the port outlived its shutdown;
+
 and the transformer's forward pass (``Transformer``) at the width of
 ``bench_model.py``'s single-chip model (vocab 32,000, d_model 1024, 16
 heads, d_ff 4096; ``ray_tpu_torch.models.bench``):
@@ -865,6 +898,66 @@ def phase_tasks_cluster(cf):
     return out
 
 
+def phase_objects(cf):
+    """O1-O5: the object plane through ``ray_tpu_torch.init`` on the card
+    (``ray_tpu_torch.tools.profile_objects``; module docstring).  Each
+    phase checks its values and its raylets' error counts inside, is
+    driven with the launch count at 0, read after it (every launch is one
+    of a raylet's batched ticks), and leaves no thread of the port behind
+    its shutdown.  O5's 2-raylet and 64-raylet bursts run at the source's
+    shape, one class, which never reaches the batched tick (their cost
+    launches are reported); its probes of one class a consumer launch
+    ``class_fill`` with a non-zero cost."""
+    from ray_tpu_torch.tools import profile_objects as po
+    out = {}
+    for key, fn in (("O1", po.large_objects), ("O2", po.broadcast),
+                    ("O3", po.spilling), ("O4", po.reconstruction),
+                    ("O5", po.locality)):
+        cf.class_fill.launches = 0
+        t0 = time.perf_counter()
+        res = fn("cuda")
+        res["wall_s"] = time.perf_counter() - t0
+        res["launches"] = cf.class_fill.launches
+        po.check_no_threads(key)
+        out[key] = res
+        log(f"[{key}] {json.dumps(res, default=str)}")
+    o5 = out["O5"]
+    for case in ("two_classes", "r3_classes"):
+        if o5[case]["cost_launches"] < 1 or o5[case]["cost_ticks"] < 1:
+            raise AssertionError(f"O5 {case}: no class_fill launch with "
+                                 f"the locality cost: {o5[case]}")
+    for case in ("two", "two_classes"):
+        if o5[case]["cross_node_fetch_bytes"] != 0:
+            raise AssertionError(f"O5 {case}: cross-node bytes under "
+                                 f"locality: {o5[case]}")
+    if o5["launches"] < 1:
+        raise AssertionError("O5: class_fill never launched")
+    o1, o2, o3, o4 = out["O1"], out["O2"], out["O3"], out["O4"]
+    log(f"[objects] O1 1 GiB: put {o1['put_ms']:.3f} ms, "
+        f"{o1['put_bytes_copied']} bytes copied (cold "
+        f"{o1['cold_put_ms']:.3f} ms), get view {o1['get_view_ms']:.3f} ms, "
+        f"get {o1['get_gbps']:.2f} GB/s, 16 MiB arg+return task "
+        f"{o1['task_s']:.3f} s; O2 256 MiB to 8 raylets: fetch "
+        f"{o2['fetch_gbps']:.2f} GB/s (cold {o2['cold_fetch_gbps']:.2f}), "
+        f"relay pulls {o2['relay_pulls']}, cross-node bytes "
+        f"{o2['cross_node_fetch_bytes']}; O3 2 GiB through 1 GiB: "
+        f"{o3['spilled_objects']} objects spilled, "
+        f"{o3['restored_objects']} restored, {o3['spill_batches']} "
+        f"batches, put {o3['put_s_per_gib']:.2f} s/GiB, get "
+        f"{o3['get_s_per_gib']:.2f} s/GiB; O4 recovered in "
+        f"{o4['recover_s']:.3f} s, loss raised in {o4['lost_s']:.3f} s; "
+        f"O5 share on the holder {o5['two']['share_on_home']} (2 raylets, "
+        f"one class), {o5['r3']['share_on_home']} (64), cost launches "
+        f"{o5['two']['cost_launches']} + {o5['r3']['cost_launches']}; "
+        f"probes of one class a consumer: share "
+        f"{o5['two_classes']['share_on_home']} + "
+        f"{o5['r3_classes']['share_on_home']}, cost launches "
+        f"{o5['two_classes']['cost_launches']} + "
+        f"{o5['r3_classes']['cost_launches']}; "
+        f"walls {[round(out[k]['wall_s'], 1) for k in sorted(out)]} s")
+    return out
+
+
 def phase_cluster(torch, cf):
     """R3: ``profile_cluster.cluster_burst`` on the card: a burst of
     ``R3_LEASES`` leases across a ``LocalCluster`` of 64 raylets from a
@@ -1636,6 +1729,8 @@ def main() -> int:
                  "_private.convert", "_private.raylet",
                  "_private.core_worker", "_private.worker",
                  "remote_function", "tools.profile_tasks",
+                 "tools.profile_objects", "_private.object_manager",
+                 "_private.local_object_manager",
                  "autoscaler.resource_demand_scheduler"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
@@ -1672,6 +1767,7 @@ def main() -> int:
     r3 = phase_cluster(torch, cf)
     c1 = phase_tasks_single(cf)
     c2 = phase_tasks_cluster(cf)
+    objects = phase_objects(cf)
     fb, fb128 = phase_flash_bwd(torch, fa, mb)
     t1 = phase_train_f32(torch, tt, fa, mb, mb.CONFIG, "train f32")
     t3f = phase_train_f32(torch, tt, fa, mb, mb.MOE_CONFIG, "moe train f32")
@@ -1723,7 +1819,8 @@ def main() -> int:
         "replaces": "ray_tpu/scheduler/jax_backend.py:374",
         "launches": (launches_a + launches_b + r1["launches"] +
                      r2["launches"] + r3["launches"] + c1["launches"] +
-                     c2["launches"]),
+                     c2["launches"] +
+                     sum(o["launches"] for o in objects.values())),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -1841,6 +1938,7 @@ def main() -> int:
                         "latency_p50_ms", "latency_p99_ms", "launches",
                         "batched_ticks", "spillbacks",
                         "spillback_rejections", "peak_workers")},
+                    "objects": objects,
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "runtime": r1["launches"],
@@ -1848,6 +1946,8 @@ def main() -> int:
                                  "cluster": r3["launches"],
                                  "tasks_single": c1["launches"],
                                  "tasks_cluster": c2["launches"],
+                                 "objects": {k: o["launches"] for k, o in
+                                             objects.items()},
                                  "forward": launches_m,
                                  "moe_forward": m3["launches"],
                                  "train_forward": t2["launches"][0],
@@ -1860,7 +1960,8 @@ def main() -> int:
                                  "mesh_train_forward": p2["launches"][0],
                                  "mesh_train_backward": p2["launches"][1],
                                  "pp_train_forward": p3["launches"][0],
-                                 "pp_train_backward": p3["launches"][1]}}))
+                                 "pp_train_backward": p3["launches"][1]}},
+                   default=str))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
 """PyTorch/CUDA port of ray_tpu: the task API (``init``, ``@remote``,
-``get``, ``put``, ``wait``) on thread workers of an in-process cluster;
+``get``, ``put``, ``wait``) on thread workers of an in-process cluster,
+with its object plane (node stores that spill, pulls and relay between
+raylets, lineage reconstruction);
 the batched scheduling tick and its placement-group and sinkhorn solves;
 the raylet's scheduling plane around the tick (``Raylet``, an in-process
 ``LocalCluster``) and the autoscaler's demand solve

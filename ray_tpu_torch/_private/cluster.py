@@ -8,9 +8,14 @@ in ``ray_tpu/gcs/server.py``): a thread polls every raylet's
 ``gcs_resource_broadcast_period_milliseconds`` and sends each raylet the
 full batch of rows, with the nodes removed since the last round.  It
 also holds what the driver's runtime reads from the GCS: the function
-table (the GCS KV's ``fn:`` rows, ``function_table``) and the node table
-(``nodes``, ``cluster_resources``, ``available_resources``), and wires
-the driver's core worker into every raylet (``attach_core_worker``).
+table (the GCS KV's ``fn:`` rows, ``function_table``), the node table
+(``nodes``, ``cluster_resources``, ``available_resources``) and the
+object directory every raylet's pulls read (``object_directory``,
+reference ``cluster.py:31``), and wires the driver's core worker into
+every raylet (``attach_core_worker``).  ``remove_node`` delivers the
+node's death as the reference's GCS does on an intentional shutdown: the
+directory forgets the node's copies and the core worker reconstructs the
+objects that lost their last one.
 
     cluster = LocalCluster(device="cpu")          # "cuda" by default
     head = cluster.add_node({"CPU": 4})
@@ -19,7 +24,8 @@ the driver's core worker into every raylet (``attach_core_worker``).
     ...
     cluster.shutdown()
 
-There is no heartbeat, so no node is ever suspect.
+There is no heartbeat, so no node is ever suspect, and a node dies only
+by ``remove_node`` (node death by missed heartbeats is ROADMAP A.4b.6).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import threading
 from typing import Dict, List, Optional
 
 from ray_tpu_torch._private.config import get_config
+from ray_tpu_torch._private.object_manager import ObjectDirectory
 from ray_tpu_torch._private.raylet import Raylet
 
 logger = logging.getLogger(__name__)
@@ -46,6 +53,7 @@ class LocalCluster:
         self._stop = threading.Event()
         self.core_worker = None
         self.function_table = FunctionTable()
+        self.object_directory = ObjectDirectory()
         period = get_config().gcs_resource_broadcast_period_milliseconds
         self._thread = threading.Thread(
             target=self._broadcast_loop, args=(period / 1000.0,),
@@ -66,11 +74,15 @@ class LocalCluster:
             return self._raylets.get(node_id)
 
     def add_node(self, resources: Dict[str, float], node_name: str = "",
-                 labels: Optional[Dict] = None) -> Raylet:
-        """Start a raylet on this cluster's device and broadcast, so
-        that every view holds the new node when this returns."""
+                 labels: Optional[Dict] = None,
+                 object_store_memory: Optional[int] = None) -> Raylet:
+        """Start a raylet on this cluster's device, with a node store of
+        ``object_store_memory`` bytes (the config's by default), and
+        broadcast, so that every view holds the new node when this
+        returns."""
         raylet = Raylet(self, resources, node_name=node_name, labels=labels,
-                        device=self.device)
+                        device=self.device,
+                        object_store_memory=object_store_memory)
         with self._lock:
             raylet.core_worker = self.core_worker
             self._raylets[raylet.node_id] = raylet
@@ -78,12 +90,20 @@ class LocalCluster:
         return raylet
 
     def remove_node(self, raylet: Raylet) -> None:
+        """Stop the raylet, broadcast its removal, then deliver its
+        death: the directory drops its copies and the core worker
+        reconstructs the objects still referenced that lost their last
+        copy (reference ``Cluster._on_node_death``)."""
         with self._lock:
             if self._raylets.pop(raylet.node_id, None) is None:
                 return
             self._removed_pending.append(raylet.node_id)
+            core = self.core_worker
         raylet.shutdown()
         self.broadcast_now()
+        lost = self.object_directory.on_node_death(raylet.node_id)
+        if core is not None:
+            core.on_node_death(raylet.node_id, lost)
 
     def attach_core_worker(self, core_worker) -> None:
         """Make ``core_worker`` the owner every raylet's tasks report to

@@ -438,12 +438,24 @@ class ClusterTaskManager:
 
     def _arg_locality_bytes(self, specs) -> Dict:
         """Per-node argument bytes for a class's queued specs, the
-        arg-locality cost signal.  Every object the port holds is inline
-        in its owner's memory store, and inline objects have no
-        directory row, so the reference gives ``{}`` for them too
-        (``ray_tpu/_private/cluster_task_manager.py:510-524``); node
-        copies come with the object plane (ROADMAP A.4b.2)."""
-        return {}
+        arg-locality cost signal: sizes and locations from the object
+        directory (the owner registers both when a big object lands in
+        a node store).  Inline arguments have no directory row and give
+        nothing: they copy anywhere for free.  The device solver calls
+        this only for classes whose specs carry object arguments.  A
+        raylet outside a cluster has no directory and gives nothing."""
+        directory = getattr(self._raylet.cluster, "object_directory", None)
+        if directory is None:
+            return {}
+        out: Dict = {}
+        for spec in specs:
+            for oid in spec.arg_object_ids():
+                size = directory.size_hint(oid)
+                if not size:
+                    continue
+                for nid in directory.get_locations(oid):
+                    out[nid] = out.get(nid, 0) + size
+        return out
 
     def _requeue_all(self, work) -> None:
         with self._lock:

@@ -6,15 +6,23 @@ fields, the placement-group and autoscaler packing fields, the knobs
 of the raylet's scheduling plane (event loop, wakeup debounce, worker
 pool, resource broadcast) and those of the task path (the submitter's
 leases, the owner's memory store, retries, lineage, the thread workers'
-start slots).  One value differs by design:
-``scheduler_backend`` names the device backend ``"torch"`` where the
-reference says ``"jax"``.  The rest of that config belongs to modules the
-port does not have yet.
+start slots) and those of the object plane (the node store, spilling,
+transfers and relay, lineage reconstruction).  Three values differ by
+design: ``scheduler_backend`` names the device backend ``"torch"`` where
+the reference says ``"jax"``; ``use_native_object_store`` is False, as
+the native shared-memory segment is not ported (ROADMAP A.4b.2b) and
+True raises; ``temp_dir``, where the node stores spill, is the port's own
+directory under the process's temporary directory.  The rest of that
+config belongs to modules the port does not have yet: the wire fetch's
+``object_transfer_pipeline_depth`` and ``object_transfer_admission_wait_s``
+come with the cross-process fetch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 import threading
 from typing import Optional
 
@@ -74,9 +82,41 @@ class Config:
     # ------ object store ------
     #: Objects larger than this leave the owner's in-process memory
     #: store for a node store (the reference's 100KB promotion
-    #: threshold in CoreWorker::Put).  The port has no node store yet:
-    #: such objects raise ``NotImplementedError``.
+    #: threshold in CoreWorker::Put).
     max_direct_call_object_size: int = 100 * 1024
+    #: Per-node object store capacity in bytes before spilling kicks in.
+    object_store_memory: int = 2 * 1024 * 1024 * 1024
+    #: Spill when store utilization exceeds this fraction.
+    object_spilling_threshold: float = 0.8
+    #: Bytes fused into one spill file by the spill thread
+    #: (reference: local_object_manager.h min_spilling_size).
+    min_spilling_size: int = 100 * 1024 * 1024
+    #: How long an over-capacity create/put/transfer reservation may
+    #: queue for space before ObjectStoreFullError surfaces (reference:
+    #: oom_grace_period_s over the plasma create_request_queue).
+    object_store_full_grace_period_s: float = 10.0
+    #: Delay between retries while a queued create waits for space.
+    object_store_full_retry_ms: int = 20
+    #: The native C++ shared-memory segment: not ported (ROADMAP
+    #: A.4b.2b), so False; True raises ``NotImplementedError`` when a
+    #: raylet starts.
+    use_native_object_store: bool = False
+    #: Chunk size of a transfer between node stores (object_manager.cc).
+    object_manager_chunk_size: int = 5 * 1024 * 1024
+    #: Sender-side transfer admission: most concurrent outbound
+    #: transfers per store; further pulls queue FIFO.
+    object_transfer_max_outbound_sessions: int = 4
+    #: Chunk-level relay: a node mid-pull registers a PARTIAL location
+    #: row and serves the assembled prefix of its in-flight transfer to
+    #: downstream pullers, so a 1->N broadcast completes as a chain.
+    object_transfer_relay_enabled: bool = True
+    #: Source selection among several locations: "load" weighs the
+    #: sources' live outbound load, "first" takes the first directory
+    #: row (the naive arm).
+    object_transfer_source_selection: str = "load"
+    #: How long a relay read waits for the upstream's watermark to pass
+    #: the chunk it asks for before it asks again.
+    object_transfer_relay_wait_s: float = 2.0
 
     # ------ core worker / task path ------
     #: Args at or below this size are inlined into the task spec.
@@ -87,6 +127,12 @@ class Config:
     lineage_pinning_enabled: bool = True
     #: Max lineage bytes kept per owner before the oldest pins go.
     max_lineage_bytes: int = 1024 * 1024 * 1024
+    #: Max recursion depth when reconstructing a lost object whose
+    #: creating task's args are lost too (object_recovery_manager).
+    max_lineage_reconstruction_depth: int = 10
+    #: Base of the per-task exponential backoff between repeated
+    #: reconstructions of the same creating task.
+    lineage_reconstruction_backoff_s: float = 0.2
 
     # ------ worker pool ------
     #: "thread" = executor threads in the node's process (the only
@@ -116,6 +162,12 @@ class Config:
     # ------ event loop ------
     #: Period of the raylet's fallback scheduling tick.
     event_loop_tick_ms: int = 5
+
+    # ------ misc ------
+    #: Where the node stores spill (``<temp_dir>/spill/<node>``).
+    temp_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(),
+                                             "ray_tpu_torch"))
 
 
 _lock = threading.Lock()

@@ -1,23 +1,25 @@
 """CoreWorker — the in-process runtime of the driver (and, logically, of
 every executor thread).
 
-A port of the task half of ``ray_tpu._private.core_worker`` for the
-PyTorch port (reference ``src/ray/core_worker/core_worker.cc``): ``Put``
-(:878), ``Get`` (:1081), ``Wait``, ``SubmitTask`` (:1650), the argument
+A port of ``ray_tpu._private.core_worker`` for the PyTorch port, normal
+tasks only (reference ``src/ray/core_worker/core_worker.cc``): ``Put``
+(:878), ``Get`` (:1081, merging the memory store, the node store and the
+pull from other nodes), ``Wait``, ``SubmitTask`` (:1650), the argument
 builder, the executor's argument fetch and the return path, over the
-owner's memory store, the reference counter, the task manager and the
-direct task submitter.
+owner's memory store, the node stores, the reference counter, the task
+manager and the direct task submitter; and the ``ObjectRecoveryManager``
+(object_recovery_manager.cc): a lost object is reconstructed by
+resubmitting its creating task from pinned lineage.
 
-Objects live in the owner's memory store only.  The reference promotes
-an object above ``max_direct_call_object_size`` (100 KiB) to a node
-store, and a literal argument above ``task_args_inline_bytes_limit`` to
-such an object; the port has no node store yet, so a ``put``, a return
-value or an argument of that size raises ``NotImplementedError`` naming
-the object plane (ROADMAP A.4b.2), as does lineage reconstruction
-(``recover_object``): an object that is neither sealed nor pending
-raises ``ObjectLostError``.  Actors (``create_actor``,
-``submit_actor_task``) wait for the actors item, A.4b.5; the task events
-and tracing spans of the reference for the GCS and the debug planes
+An object above ``max_direct_call_object_size`` (100 KiB) goes to the
+local raylet's node store and the object directory, with an
+``InPlasmaMarker`` in the owner's memory store for a task's return; a
+literal argument above ``task_args_inline_bytes_limit`` is promoted to
+such an object.  Actors (``create_actor``, ``submit_actor_task``) wait
+for the actors item, A.4b.5, and with them owner-death invalidation
+(``fail_owned_object``); a CUDA tensor as an object waits for the
+device-object plane (A.5); the task events, tracing spans and flight
+recorder of the reference belong to the GCS and the debug planes
 (A.4b.4, A.4b.7).
 """
 
@@ -36,18 +38,15 @@ from ray_tpu_torch._private.ids import JobID, ObjectID, TaskID, WorkerID
 from ray_tpu_torch._private.metrics_agent import (get_metrics_registry,
                                                   record_internal)
 from ray_tpu_torch._private.object_ref import ObjectRef
-from ray_tpu_torch._private.object_store import MemoryStore, entry_value
+from ray_tpu_torch._private.object_store import (InPlasmaMarker,
+                                                 MemoryStore,
+                                                 ObjectVanishedError,
+                                                 entry_value)
 from ray_tpu_torch._private.reference_counter import ReferenceCounter
 from ray_tpu_torch._private.serialization import serialize
 from ray_tpu_torch._private.task_manager import TaskManager
 from ray_tpu_torch._private.task_spec import TaskArg, TaskSpec
 
-
-def _too_large(what: str, nbytes: int, limit: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} of {nbytes} bytes is above {limit} bytes, the most the "
-        "owner's memory store holds; larger objects go to a node store, "
-        "which comes with the object plane (ROADMAP A.4b.2)")
 
 
 def _collect(cw: "CoreWorker") -> None:
@@ -57,6 +56,9 @@ def _collect(cw: "CoreWorker") -> None:
         record_internal(f"ray_tpu.core_worker.{k}", v, **wlabel)
     record_internal("ray_tpu.core_worker.objects_in_memory_store",
                     cw.memory_store.size(), **wlabel)
+    # A top-level name: recovery dashboards key on it.
+    record_internal("ray_tpu.lineage_reconstructions",
+                    cw.metrics["lineage_reconstructions"], **wlabel)
 
 
 class CoreWorker:
@@ -74,7 +76,12 @@ class CoreWorker:
         self._put_lock = threading.Lock()
         self.metrics: Dict[str, float] = {"tasks_finished": 0,
                                           "task_exec_seconds": 0.0,
-                                          "tasks_submitted": 0}
+                                          "tasks_submitted": 0,
+                                          "lineage_reconstructions": 0}
+        # Per-creating-task reconstruction state (attempts and the
+        # exponential-backoff gate).
+        self._recon_lock = threading.Lock()
+        self._reconstructions: Dict[TaskID, _ReconState] = {}
         get_metrics_registry().register_collector(self, _collect)
         # Free stored copies when objects go out of scope.
         self.reference_counter.subscribe_deleted(self._free_object)
@@ -104,18 +111,22 @@ class CoreWorker:
 
     def put_value(self, object_id: ObjectID, value: Any):
         serialized = serialize(value)
-        limit = get_config().max_direct_call_object_size
-        if serialized.total_bytes > limit:
-            raise _too_large("put of an object", serialized.total_bytes,
-                             limit)
         contained = [r.object_id() for r in serialized.contained_refs]
         self.reference_counter.add_owned_object(object_id,
                                                 contained_ids=contained)
-        self.memory_store.put(object_id, serialized)
+        if serialized.total_bytes <= \
+                get_config().max_direct_call_object_size:
+            self.memory_store.put(object_id, serialized)
+        else:
+            raylet = self.local_raylet
+            raylet.object_store.put(object_id, serialized)
+            self.cluster.object_directory.add_location(
+                object_id, raylet.node_id, size=serialized.total_bytes)
 
     def put_return_value(self, object_id: ObjectID, value: Any, node) -> int:
-        """Store a task return in the owner's memory store (the
-        reference's 'inline reply')."""
+        """Store a task return (small: the owner's memory store, the
+        'inline reply'; big: the executing node's store and the
+        directory)."""
         serialized = serialize(value)
         contained = [r.object_id() for r in serialized.contained_refs]
         if contained:
@@ -126,14 +137,18 @@ class CoreWorker:
 
     def put_serialized_return(self, object_id: ObjectID, serialized,
                               node):
-        """Owner-side landing of an already-serialized return: it seals
-        the memory store; a value above the limit raises (module
-        docstring), so the task fails with it."""
-        limit = get_config().max_direct_call_object_size
-        if serialized.total_bytes > limit:
-            raise _too_large("a task's return value", serialized.total_bytes,
-                             limit)
-        self.memory_store.put(object_id, serialized)
+        """Owner-side landing of an already-serialized return: a small
+        value seals the memory store; a big one goes to the executing
+        node's store and the directory, with an InPlasmaMarker so that
+        owner-side gets unblock at once."""
+        if serialized.total_bytes <= \
+                get_config().max_direct_call_object_size:
+            self.memory_store.put(object_id, serialized)
+        else:
+            node.object_store.put(object_id, serialized)
+            self.cluster.object_directory.add_location(
+                object_id, node.node_id, size=serialized.total_bytes)
+            self.memory_store.put(object_id, InPlasmaMarker(node.node_id))
 
     def get(self, refs: Sequence[ObjectRef],
             timeout: Optional[float] = None) -> List[Any]:
@@ -153,34 +168,83 @@ class CoreWorker:
             value, found = self._try_get_local(object_id)
             if found:
                 return value
+            # The deadline gate sits at the top: every retry arm below
+            # comes back here.
             if deadline is not None and time.monotonic() >= deadline:
                 raise exceptions.GetTimeoutError(
                     f"Get timed out for {object_id}")
-            # A pending task return: wait on the memory store briefly,
-            # then re-examine.
-            try:
-                entry = self.memory_store.get(object_id, timeout=0.05)
-                return self._entry_to_value(object_id, entry)
-            except exceptions.GetTimeoutError:
-                pass
-            if self._is_pending(object_id):
+            # Not local: is it in some node's store?
+            locations = self.cluster.object_directory.get_locations(
+                object_id)
+            if locations:
+                done = threading.Event()
+                result = {}
+
+                def cb(ok):
+                    result["ok"] = ok
+                    done.set()
+
+                self.local_raylet.object_manager.pull_async(object_id, cb)
+                done.wait(timeout=5.0)
+                if result.get("ok"):
+                    continue
+            else:
+                # Maybe a pending task return: wait on the memory store
+                # briefly, then re-examine.
+                try:
+                    entry = self.memory_store.get(object_id, timeout=0.05)
+                    return self._entry_to_value(object_id, entry)
+                except exceptions.GetTimeoutError:
+                    pass
+                except _Retry:
+                    continue
+            # Nowhere and not pending: lineage reconstruction.
+            if not self._is_pending(object_id) and not locations:
+                if self.recover_object(object_id):
+                    # Resubmitted now, or a backoff window is open:
+                    # polled every pass, so a copy lost again gets its
+                    # next attempt when the window opens.
+                    nowhere_streak = 0
+                    continue
+                # Unrecoverable: a few rechecks (a producing task may
+                # seal between reads), then surface the loss.
+                nowhere_streak += 1
+                if nowhere_streak >= 5:
+                    raise self._lost_error(
+                        object_id,
+                        "all copies lost and lineage reconstruction "
+                        "unavailable")
+                time.sleep(0.01)
+            else:
                 nowhere_streak = 0
-                continue
-            # Neither sealed nor pending: allow a few rechecks (a
-            # producing task may seal between reads), then surface the
-            # loss: reconstruction comes with the object plane.
-            nowhere_streak += 1
-            if nowhere_streak >= 5:
-                raise self._lost_error(
-                    object_id, "not in its owner's memory store and no "
-                    "pending task will produce it")
-            time.sleep(0.01)
 
     def _try_get_local(self, object_id: ObjectID) -> Tuple[Any, bool]:
         entry = self.memory_store.get_entry(object_id)
         if entry is not None and entry.sealed:
-            return self._entry_to_value(object_id, entry), True
+            try:
+                return self._entry_to_value(object_id, entry), True
+            except _Retry:
+                return None, False
+        raylet = self.local_raylet
+        if raylet is not None:
+            try:
+                e = raylet.object_store.get(object_id)
+                if e is not None:
+                    return entry_value(e), True
+            except ObjectVanishedError:
+                # Heal the entry (else ``contains`` keeps short-
+                # circuiting pulls "local") and re-resolve.
+                self._heal_vanished(object_id)
         return None, False
+
+    def _heal_vanished(self, object_id: ObjectID, raylet=None) -> None:
+        """Drop a local entry whose bytes vanished, and its stale
+        directory row for this node, so pulls re-fetch a real copy."""
+        raylet = raylet or self.local_raylet
+        if raylet is not None and \
+                raylet.object_store.drop_vanished(object_id):
+            self.cluster.object_directory.remove_location(
+                object_id, raylet.node_id)
 
     def _entry_to_value(self, object_id: ObjectID, entry):
         if entry.error is not None:
@@ -188,62 +252,93 @@ class CoreWorker:
             if isinstance(err, exceptions.TaskError):
                 raise err.as_instanceof_cause()
             raise err
+        if isinstance(entry.data, InPlasmaMarker):
+            # The bytes are in a node store.
+            raylet = self.local_raylet
+            try:
+                e = raylet.object_store.get(object_id)
+                if e is not None:
+                    return entry_value(e)
+            except ObjectVanishedError:
+                self._heal_vanished(object_id)
+            raise _Retry()
         return entry_value(entry)
 
     def _is_pending(self, object_id: ObjectID) -> bool:
         return self.task_manager.is_pending(object_id.task_id())
 
-    def _lost_error(self, object_id: ObjectID,
-                    reason: str) -> exceptions.ObjectLostError:
-        spec = self.task_manager.lineage_spec_for_object(object_id)
-        lineage = (f"lineage=pinned ({spec.function_name}), not "
-                   "reconstructed: recovery comes with the object plane "
-                   "(ROADMAP A.4b.2)") if spec is not None \
-            else "lineage=not pinned"
-        return exceptions.ObjectLostError(
-            object_id, f"{reason}; owner worker "
-            f"{self.worker_id.hex()[:12]}; {lineage}")
-
     def get_for_executor(self, object_id: ObjectID, node) -> Any:
-        """Executor-side arg materialization (GetAndPinArgsForExecutor):
-        from the owner's memory store, waiting for the producer to seal
-        it.  A task pushed onto a reused lease did not wait at the
-        raylet, so its argument may still be pending here.  Gives up
-        after the reference's 30 s."""
+        """Executor-side argument fetch (GetAndPinArgsForExecutor):
+        store check, pull, store check.  A pull can complete through the
+        owner's memory store (small returns never enter a node store),
+        and the producer may seal between any two checks, so both
+        stores are read again after every pull.  Gives up after the
+        reference's 30 s."""
         deadline = time.monotonic() + 30.0
+        misses = 0
         while True:
+            try:
+                entry = node.object_store.get(object_id)
+                if entry is not None:
+                    return entry_value(entry)
+            except ObjectVanishedError:
+                self._heal_vanished(object_id, raylet=node)
+            entry = self.memory_store.get_entry(object_id)
+            if entry is not None and entry.sealed and \
+                    not isinstance(entry.data, InPlasmaMarker):
+                return self._entry_to_value(object_id, entry)
+            if misses:
+                # A "successful" pull that left no bytes here (a marker
+                # whose node died): back off, and after repeated misses
+                # try reconstruction.
+                if misses >= 5:
+                    self.recover_object(object_id)
+                time.sleep(min(0.005 * misses, 0.1))
             remaining = deadline - time.monotonic()
             if remaining <= 0:
+                raise self._lost_error(object_id, "arg fetch failed")
+            done = threading.Event()
+            ok_box = [False]
+
+            def _cb(ok, done=done, ok_box=ok_box):
+                ok_box[0] = ok
+                done.set()
+            node.object_manager.pull_async(object_id, _cb)
+            if not done.wait(timeout=remaining):
                 raise self._lost_error(object_id, "arg fetch timed out")
-            try:
-                entry = self.memory_store.get(object_id,
-                                              timeout=min(remaining, 0.5))
-                return self._entry_to_value(object_id, entry)
-            except exceptions.GetTimeoutError:
-                pass
-            if not self._is_pending(object_id) and \
-                    not self.memory_store.contains(object_id):
-                raise self._lost_error(object_id, "arg fetch failed and "
-                                       "not recoverable")
+            if not ok_box[0]:
+                # Failed pull (the source died): reconstruct, then check
+                # and pull again.
+                if not self.recover_object(object_id):
+                    raise self._lost_error(
+                        object_id, "arg fetch failed and not recoverable")
+                time.sleep(0.01)
+            else:
+                misses += 1
 
     def wait(self, refs: Sequence[ObjectRef], num_returns: int = 1,
              timeout: Optional[float] = None,
              fetch_local: bool = True) -> Tuple[List, List]:
-        """Event-driven wait: the readiness signal is the owner memory
-        store sealing; each unready ref registers one wakeup hook, and
-        the loop sleeps on an Event instead of polling (reference:
-        memory-store GetAsync under ``Wait``)."""
+        """Event-driven wait: the readiness signals are the owner's
+        memory store sealing (small returns, errors, markers) and the
+        directory gaining a location (big objects on any node); each
+        unready ref hooks one wakeup per signal and the loop sleeps on
+        an Event (reference: memory-store GetAsync and the directory
+        subscription under ``Wait``)."""
         deadline = None if timeout is None else time.monotonic() + timeout
         refs = list(refs)
         wake = threading.Event()
-        hooked: Dict[ObjectID, Any] = {}
+        hooked: Dict[ObjectID, Tuple] = {}
+        directory = self.cluster.object_directory
 
         def hook(object_id: ObjectID):
             if object_id in hooked:
                 return
             mem_cb = lambda _e: wake.set()      # noqa: E731
-            hooked[object_id] = mem_cb
+            dir_cb = lambda _n: wake.set()      # noqa: E731
+            hooked[object_id] = (mem_cb, dir_cb)
             self.memory_store.get_async(object_id, mem_cb)
+            directory.subscribe_location(object_id, dir_cb)
 
         try:
             while True:
@@ -267,11 +362,18 @@ class CoreWorker:
         finally:
             # Deregister every hook this call planted: repeated waits on
             # a slow task must not accrete dead closures.
-            for object_id, mem_cb in hooked.items():
+            for object_id, (mem_cb, dir_cb) in hooked.items():
                 self.memory_store.cancel_get_async(object_id, mem_cb)
+                directory.unsubscribe_location(object_id, dir_cb)
 
     def _is_ready(self, object_id: ObjectID) -> bool:
-        return self.memory_store.contains(object_id)
+        entry = self.memory_store.get_entry(object_id)
+        if entry is not None and entry.sealed:
+            return True
+        if self.cluster.object_directory.get_locations(object_id):
+            return True
+        raylet = self.local_raylet
+        return raylet is not None and raylet.object_store.contains(object_id)
 
     def get_async(self, ref: ObjectRef, callback):
         def run():
@@ -284,19 +386,22 @@ class CoreWorker:
 
     # ---- task submission (core_worker.cc:1650) -------------------------
     def build_args(self, flat_args):
-        """Returns (task_args, dep_ids, borrowed_ids).
+        """Returns (task_args, dep_ids, holders, borrowed_ids).
 
-        ``borrowed_ids`` are refs nested inside small inlined args — the
-        task borrows them for its lifetime (reference: borrower
-        protocol, reference_count.h).  They go on the spec so the
-        TaskManager pins them while the task is pending.  The
-        reference's promotion of a large literal argument to an owned
-        object, and the holders that keep it alive until submission,
-        raise here instead (module docstring).
+        ``holders`` are refs to literal arguments above
+        ``task_args_inline_bytes_limit``, promoted to owned objects
+        (_raylet.pyx:1487): the caller keeps them alive until
+        ``submit_task`` registered the submitted-task refs, or the
+        promoted object could be freed in between.  ``borrowed_ids`` are
+        refs nested inside small inlined args: the task borrows them for
+        its lifetime (reference: borrower protocol, reference_count.h),
+        so they go on the spec and the TaskManager pins them while the
+        task is pending.
         """
         limit = get_config().task_args_inline_bytes_limit
         out: List[TaskArg] = []
         dep_ids: List[ObjectID] = []
+        holders: List[ObjectRef] = []
         borrowed: List[ObjectID] = []
         for a in flat_args:
             if isinstance(a, ObjectRef):
@@ -306,27 +411,132 @@ class CoreWorker:
             else:
                 s = serialize(a)
                 if s.total_bytes > limit:
-                    raise _too_large("a task argument", s.total_bytes, limit)
-                borrowed.extend(r.object_id() for r in s.contained_refs)
-                out.append(TaskArg(is_inline=True, value=s))
-        return out, dep_ids, borrowed
+                    ref = self.put(a)
+                    holders.append(ref)
+                    out.append(TaskArg(is_inline=False,
+                                       object_id=ref.object_id(),
+                                       owner_id=self.worker_id))
+                    dep_ids.append(ref.object_id())
+                else:
+                    borrowed.extend(r.object_id() for r in s.contained_refs)
+                    out.append(TaskArg(is_inline=True, value=s))
+        return out, dep_ids, holders, borrowed
 
-    def submit_task(self, spec: TaskSpec) -> List[ObjectRef]:
+    def submit_task(self, spec: TaskSpec, holders=()) -> List[ObjectRef]:
         if spec.runtime_env:
             raise NotImplementedError(
                 "runtime_env is not supported yet: thread workers run in "
                 "the driver's environment, and process workers, which "
                 "carry one, are not ported")
         self.task_manager.add_pending_task(spec)
+        del holders  # the submitted-task refs now pin the promoted args
         self.metrics["tasks_submitted"] += 1
         self.task_submitter.submit(spec)
         return [ObjectRef(oid, owner_id=self.worker_id)
                 for oid in spec.return_ids]
 
+    # ---- recovery (object_recovery_manager.cc) -------------------------
+    def recover_object(self, object_id: ObjectID, _depth: int = 0) -> bool:
+        """Resubmit the creating task from pinned lineage.
+
+        Lost arguments of the creating task are recovered first,
+        recursively, bounded by ``max_lineage_reconstruction_depth``.
+        Repeated reconstructions of one task are gated by exponential
+        backoff: inside the window the call reports in progress without
+        resubmitting, so polling loops cannot stampede the scheduler.
+        Returns True when the object is being recomputed (now or
+        already), False when it cannot be."""
+        cfg = get_config()
+        if not cfg.lineage_pinning_enabled:
+            return False
+        if _depth > cfg.max_lineage_reconstruction_depth:
+            return False
+        spec = self.task_manager.lineage_spec_for_object(object_id)
+        if spec is None:
+            return False
+        if self.task_manager.is_pending(spec.task_id):
+            return True  # already being recomputed
+        now = time.monotonic()
+        with self._recon_lock:
+            st = self._reconstructions.get(spec.task_id)
+            if st is None:
+                st = self._reconstructions[spec.task_id] = _ReconState()
+            if now < st.next_allowed:
+                return True   # backoff window: resubmission pending
+            st.attempts += 1
+            st.next_allowed = now + cfg.lineage_reconstruction_backoff_s \
+                * (2 ** (st.attempts - 1))
+        # The recomputed task cannot run without its own inputs.
+        for arg_id in spec.arg_object_ids():
+            if not self._object_available(arg_id):
+                self.recover_object(arg_id, _depth=_depth + 1)
+        self.metrics["lineage_reconstructions"] += 1
+        self.task_manager.add_pending_task(spec)
+        self.task_submitter.submit(spec)
+        return True
+
+    def _lost_error(self, object_id: ObjectID,
+                    reason: str) -> exceptions.ObjectLostError:
+        """An ObjectLostError with its context: the owner, where the
+        copies last were, whether lineage could (or did) try to
+        recompute it, and any spill record."""
+        parts = [reason]
+        ref = self.reference_counter.describe(object_id)
+        if ref is not None:
+            parts.append("owner worker=" +
+                         ("this driver" if ref["owned"] else "borrowed") +
+                         f" ({self.worker_id.hex()[:12]})")
+            if ref.get("spilled_url"):
+                parts.append(f"spilled_url={ref['spilled_url']}")
+        locations = self.cluster.object_directory.get_locations(object_id)
+        parts.append("known locations=" +
+                     (",".join(n.hex()[:12] for n in locations)
+                      if locations else "none"))
+        spec = self.task_manager.lineage_spec_for_object(object_id)
+        if spec is None:
+            parts.append("lineage=not pinned (cannot reconstruct; "
+                         "check lineage_pinning_enabled / "
+                         "max_lineage_bytes)")
+        else:
+            with self._recon_lock:
+                st = self._reconstructions.get(spec.task_id)
+                attempts = st.attempts if st is not None else 0
+            parts.append(f"lineage=pinned ({spec.function_name}), "
+                         f"{attempts} reconstruction attempt(s)")
+        return exceptions.ObjectLostError(object_id, "; ".join(parts))
+
+    def _object_available(self, object_id: ObjectID) -> bool:
+        """Needs no recovery: a sealed value (not a marker pointing at a
+        store that may have died), a live location, or a pending
+        producing task."""
+        entry = self.memory_store.get_entry(object_id)
+        if entry is not None and entry.sealed and \
+                not isinstance(entry.data, InPlasmaMarker):
+            return True
+        if self.cluster.object_directory.get_locations(object_id):
+            return True
+        return self.task_manager.is_pending(object_id.task_id())
+
+    def on_node_death(self, node_id, lost_objects: List[ObjectID]):
+        """Reconstruct at once the referenced objects a dead node held
+        the last copy of."""
+        for oid in lost_objects:
+            if self.reference_counter.has_reference(oid):
+                self.memory_store.delete(oid)
+                self.recover_object(oid)
+
     # ---- free path ------------------------------------------------------
     def _free_object(self, object_id: ObjectID):
         self.memory_store.delete(object_id)
+        directory = self.cluster.object_directory
+        for node_id in directory.get_locations(object_id):
+            raylet = self.cluster.raylet(node_id)
+            if raylet is not None:
+                raylet.object_store.delete(object_id)
+        directory.remove_object(object_id)
         self.task_manager.evict_lineage(object_id.task_id())
+        with self._recon_lock:
+            self._reconstructions.pop(object_id.task_id(), None)
 
     def free_objects(self, refs: Sequence[ObjectRef]):
         for ref in refs:
@@ -336,3 +546,17 @@ class CoreWorker:
     def record_task_metric(self, spec: TaskSpec, elapsed: float):
         self.metrics["tasks_finished"] += 1
         self.metrics["task_exec_seconds"] += elapsed
+
+
+class _ReconState:
+    """Reconstruction bookkeeping for one creating task."""
+
+    __slots__ = ("attempts", "next_allowed")
+
+    def __init__(self):
+        self.attempts = 0
+        self.next_allowed = 0.0
+
+
+class _Retry(Exception):
+    """A marker's bytes are not local: re-resolve through a pull."""

@@ -1,12 +1,9 @@
 """Normal-task transport: leasing, pipelining, spillback handling.
 
 A port of ``ray_tpu._private.direct_task_submitter`` for the PyTorch
-port, whole but for three things.  The lease-node choice has no object
-directory to read (ROADMAP A.4b.2): every argument the port holds is in
-its owner's memory store, which has no directory row, so the reference
-would also fall to the local raylet (or the affinity node).  The task
-events of the transport (SCHEDULED, SUBMITTED_TO_WORKER) belong to the
-GCS (A.4b.4) and are left out.  And C.4:
+port, whole but for two things.  The task events of the transport
+(SCHEDULED, SUBMITTED_TO_WORKER) belong to the GCS (A.4b.4) and are left
+out.  And C.4:
 
 Divergence on a spilled lease (ROADMAP C.4): ``_on_lease_result``
 re-sends a spillback to the raylet it names with ``grant_or_reject``,
@@ -211,17 +208,26 @@ class DirectTaskSubmitter:
 
     # ---- leasing --------------------------------------------------------
     def _pick_lease_raylet(self, spec: TaskSpec):
-        """Lease policy (lease_policy.h:54-60): the affinity node, else
-        the local raylet.  The reference first tries the raylet holding
-        the most argument bytes by the object directory; memory-store
-        objects have no directory row, and the port has no other
-        objects yet (module docstring)."""
+        """Locality-aware lease policy (lease_policy.h:54-60): the
+        affinity node, else the raylet holding the largest argument by
+        the object directory, else the local raylet.  The reference
+        reads each holder's entry size from its store (which restores a
+        spilled entry); the directory's size hint is the same number."""
+        cluster = self._core.cluster
         if spec.scheduling_options.node_affinity_node_id is not None:
-            affinity = self._core.cluster.raylet(
+            affinity = cluster.raylet(
                 spec.scheduling_options.node_affinity_node_id)
             if affinity is not None:
                 return affinity
-        return self._core.local_raylet
+        best, best_bytes = None, -1
+        for oid in spec.arg_object_ids():
+            directory = cluster.object_directory
+            size = directory.size_hint(oid)
+            for node_id in directory.get_locations(oid):
+                raylet = cluster.raylet(node_id)
+                if raylet is not None and size > best_bytes:
+                    best, best_bytes = raylet, size
+        return best or self._core.local_raylet
 
     def _clear_request_gate(self, key: int):
         with self._lock:

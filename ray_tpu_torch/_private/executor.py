@@ -2,9 +2,11 @@
 
 A port of ``ray_tpu._private.executor`` for the PyTorch port, normal
 tasks only (reference ``CoreWorker::ExecuteTask``, core_worker.cc:2255
--> ``execute_task``, _raylet.pyx:481): materialize the arguments, load
-the function from the cluster's function table, run it, store the
-returns in the owner's memory store.
+-> ``execute_task``, _raylet.pyx:481): materialize the arguments (an
+object argument through ``CoreWorker.get_for_executor``: the node store,
+a pull, or the owner's memory store), load the function from the
+cluster's function table, run it, store the returns (in the owner's
+memory store, or above 100 KiB in the node's store).
 
 Left out, each with the item that brings it: the runtime env applied
 around the task body (``submit_task`` raises for a non-empty one), the

@@ -7,16 +7,18 @@ placement-only resources.  Resources were reserved by the
 ``ClusterTaskManager`` when it chose this node, so dispatch only needs a
 worker.
 
-``DependencyManager`` is the memory-store half of the reference's
-(``dependency_manager.h``, with ``ObjectManager.is_local_or_inline`` and
-``pull_async``, ``ray_tpu/_private/object_manager.py:296-309``,
-``:357-368``): an argument is ready once it is sealed in its owner's
-memory store (the core worker attached to this raylet), and a task
-whose arguments are not all sealed waits on ``MemoryStore.get_async``.
-That callback runs on the thread that seals the object, so it posts to
-this raylet's loop, where the waiting state is kept.  The node store,
-the pull from other nodes and the argument pins that keep a node copy
-from being spilled come with the object plane (ROADMAP A.4b.2).
+``DependencyManager`` is the reference's (``dependency_manager.h``):
+a task whose argument objects are not all local (in this node's store,
+or inline in the owner's memory store) waits while the node's object
+manager pulls them; a failed pull asks the owner to reconstruct the
+object and pulls again, up to ``_MAX_PULL_RETRIES`` times, after which
+the task dispatches anyway and its executor's fetch raises the
+``ObjectLostError``.  The pull callbacks arrive on pull threads (or the
+thread that seals an object), so they post to this raylet's loop, where
+the waiting state is kept (the reference takes a lock instead).  A
+granted lease pins its task's arguments in the node store until the
+worker is returned (GetAndPinArgsForExecutor), so a spill cannot take
+them from under the executor's read.
 """
 
 from __future__ import annotations
@@ -32,38 +34,31 @@ from ray_tpu_torch.scheduler.resources import ResourceRequest
 
 
 class _Waiting:
-    __slots__ = ("spec", "reply", "missing")
+    __slots__ = ("spec", "reply", "missing", "retries")
 
     def __init__(self, spec, reply, missing):
         self.spec = spec
         self.reply = reply
         self.missing = missing
+        self.retries = {}  # oid -> failed-pull retry count
 
 
 class DependencyManager:
-    """Holds a task until its argument objects are sealed in their
-    owner's memory store."""
+    """Holds a task until its argument objects are local to the node."""
+
+    _MAX_PULL_RETRIES = 3
 
     def __init__(self, raylet):
         self._raylet = raylet
         self._waiting: Dict = {}  # token -> _Waiting, on the loop only
-
-    def _memory_store(self):
-        core = getattr(self._raylet, "core_worker", None)
-        if core is None:
-            raise RuntimeError(
-                f"raylet {self._raylet.node_id} has no core worker "
-                "attached: an object argument has no owner's memory "
-                "store to wait in")
-        return core.memory_store
 
     def wait_for_args(self, spec: TaskSpec, ready_cb: Callable[[], None]):
         oids = spec.arg_object_ids()
         if not oids:
             ready_cb()
             return
-        store = self._memory_store()
-        missing = [oid for oid in oids if not store.contains(oid)]
+        om = self._raylet.object_manager
+        missing = [oid for oid in oids if not om.is_local_or_inline(oid)]
         if not missing:
             ready_cb()
             return
@@ -72,20 +67,38 @@ class DependencyManager:
         token = object()
         self._waiting[token] = _Waiting(spec, ready_cb, set(missing))
         for oid in missing:
-            store.get_async(oid, self._poster(token, oid))
+            self._pull(token, oid)
 
-    def _poster(self, token, oid):
-        """The ``get_async`` callback of one argument: it runs on the
-        thread that seals the object, so it posts to this raylet's
-        loop."""
-        return lambda _entry: self._raylet.loop.post(
-            lambda: self._on_arg(token, oid), "dep.arg_ready")
+    def _pull(self, token, oid):
+        """Pull ``oid``; its callback runs on a pull thread (or the
+        sealing thread) and posts the outcome to this raylet's loop."""
+        loop = self._raylet.loop
+        self._raylet.object_manager.pull_async(
+            oid, lambda ok: loop.post(lambda: self._on_arg(token, oid, ok),
+                                      "dep.arg_ready"))
 
     @loop_only("raylet")
-    def _on_arg(self, token, oid):
+    def _on_arg(self, token, oid, ok):
         state = self._waiting.get(token)
         if state is None:
             return
+        retry = False
+        if not ok:
+            state.retries[oid] = state.retries.get(oid, 0) + 1
+            retry = state.retries[oid] <= self._MAX_PULL_RETRIES
+        if retry:
+            # A failed pull (the source died, the object was freed): ask
+            # the owner to reconstruct from lineage, then pull again
+            # after a short delay.
+            core = self._raylet.core_worker
+            if core is not None:
+                core.recover_object(oid)
+            self._raylet.loop.schedule_after(
+                0.02 * state.retries[oid],
+                lambda: self._pull(token, oid), "dep.repull")
+            return
+        # The argument is ready, or its retries are spent: then the task
+        # dispatches anyway and the executor's fetch raises the loss.
         state.missing.discard(oid)
         if not state.missing:
             del self._waiting[token]
@@ -102,6 +115,10 @@ class LocalTaskManager:
         self._dispatch_queue: deque = deque()
         # Resources held by leased workers: worker_id -> ResourceRequest.
         self._allocated: Dict = {}
+        # Argument objects pinned for a lease: worker_id -> [ObjectID],
+        # released with the lease (a pin left for ever would make every
+        # consumed object unspillable).
+        self._arg_pins: Dict = {}
         self.dependency_manager = DependencyManager(raylet)
 
     # step 1-2: queue + wait for args
@@ -149,12 +166,19 @@ class LocalTaskManager:
                             self._raylet.node_id, ResourceRequest(delta))
                         self._raylet.cluster_task_manager.on_resources_freed()
                 self._allocated[worker.worker_id] = held
+                pinned = list(spec.arg_object_ids())
+                self._arg_pins[worker.worker_id] = pinned
+            for oid in pinned:
+                self._raylet.object_store.pin(oid)
             reply({"worker": worker, "raylet": self._raylet,
                    "resources": spec.resources})
 
     def release_worker_resources(self, worker) -> None:
         with self._lock:
             req = self._allocated.pop(worker.worker_id, None)
+            pinned = self._arg_pins.pop(worker.worker_id, None)
+        for oid in pinned or ():
+            self._raylet.object_store.unpin(oid)
         if req is not None:
             self._raylet.cluster_view.add_back(self._raylet.node_id, req)
             self._raylet.loop.post(self.dispatch, "local.dispatch")

@@ -7,16 +7,25 @@ pool of executor threads, the local and cluster task managers, the
 lease protocol (``request_worker_lease``, ``request_worker_lease_batch``,
 ``return_worker``), the resource broadcast's receiving end
 (``update_resource_usage``) and ``core_worker``, the owner whose memory
-store holds the objects its tasks pass (wired by ``LocalCluster``).
+store holds the objects its tasks pass (wired by ``LocalCluster``); and
+the object plane in the reference's order: the node store
+(``object_store``, ``object_store_memory`` bytes, spilling into
+``<temp_dir>/spill/<node>``), its spill thread
+(``local_object_manager``) and the pulls (``object_manager``) over the
+cluster's object directory.
 
-The reference raylet's heartbeat thread, object store, spill manager
-and placement-group bundle two-phase commit belong to planes the port
-does not have yet; its resource report carries no host statistics and
-no transfer load, which belong to the object plane.
+The reference raylet's heartbeat thread, its native shared-memory
+segment (ROADMAP A.4b.2b; ``use_native_object_store=True`` raises here)
+and the placement-group bundle two-phase commit belong to items the port
+does not have yet; its resource report carries no host statistics and no
+transfer load (the hint of cross-process pulls, which come with process
+workers).  A raylet made without a cluster (``Raylet(None, ...)``) keeps
+an object directory of its own.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, Optional
 
 from ray_tpu_torch._private.cluster_task_manager import ClusterTaskManager
@@ -24,23 +33,35 @@ from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch._private.event_loop import EventLoop
 from ray_tpu_torch._private.ids import NodeID
+from ray_tpu_torch._private.local_object_manager import LocalObjectManager
 from ray_tpu_torch._private.local_task_manager import LocalTaskManager
+from ray_tpu_torch._private.object_manager import (NodeObjectManager,
+                                                   ObjectDirectory)
+from ray_tpu_torch._private.object_store import NodeObjectStore
 from ray_tpu_torch._private.task_spec import TaskSpec
 from ray_tpu_torch._private.worker_pool import WorkerPool
 from ray_tpu_torch.scheduler.resources import (ClusterResourceView,
                                                NodeResources, _quantize)
 
 
+
 class Raylet:
     """One node's scheduler.  ``device`` is where its batched tick runs:
     the card unless the caller passes ``"cpu"``; it is resolved here
     when ``scheduler_backend`` is ``"torch"``, so a raylet without a
-    card raises at construction."""
+    card raises at construction.  Its node store holds
+    ``object_store_memory`` bytes (``Config.object_store_memory`` by
+    default)."""
 
     def __init__(self, cluster, resources: Dict[str, float],
                  node_name: str = "", labels: Optional[Dict] = None,
-                 device=None):
+                 device=None, object_store_memory: Optional[int] = None):
         cfg = get_config()
+        if cfg.use_native_object_store:
+            raise NotImplementedError(
+                "use_native_object_store=True: the native shared-memory "
+                "segment is not ported yet (ROADMAP A.4b.2b); the node "
+                "store holds objects on the Python heap")
         self.device = resolve_device(device) \
             if cfg.scheduler_backend == "torch" else device
         self.cluster = cluster
@@ -49,6 +70,19 @@ class Raylet:
         self.local_resources = NodeResources(resources, labels=labels)
         self.cluster_view = ClusterResourceView()   # local (dirty) view
         self.loop = EventLoop(f"raylet-{self.node_id.hex()[:6]}")
+        spill_dir = os.path.join(cfg.temp_dir, "spill",
+                                 self.node_id.hex()[:8])
+        self.object_store = NodeObjectStore(
+            self.node_id, object_store_memory or cfg.object_store_memory,
+            spill_dir=spill_dir,
+            spill_threshold=cfg.object_spilling_threshold,
+            on_spilled=self._record_spilled_url)
+        # The spill thread moves spilling over the threshold off the put
+        # path and feeds the create-request queue.
+        self.local_object_manager = LocalObjectManager(
+            self.object_store, spill_dir,
+            node_label=self.node_id.hex()[:12])
+        self.object_store.attach_spill_manager(self.local_object_manager)
         self.core_worker = None      # wired by the cluster/driver
         self.worker_pool = WorkerPool(self)
         self.local_task_manager = LocalTaskManager(self)
@@ -58,6 +92,9 @@ class Raylet:
                             "lease_batch_requests": 0,
                             "lease_batch_entries": 0}
         self.cluster_task_manager = ClusterTaskManager(self)
+        self.object_manager = NodeObjectManager(
+            self, ObjectDirectory() if cluster is None
+            else cluster.object_directory)
         self._dead = False
         # Seed the view with this node's own row: the view's local row
         # is this node's authoritative ledger.
@@ -123,6 +160,19 @@ class Raylet:
             self.cluster_view.set_masked(set(suspect))
         self.cluster_task_manager.on_cluster_changed()
 
+    def _record_spilled_url(self, object_id, url: str):
+        """Spill callback: record the spilled_url with the owner's
+        reference counter.  Posted to the loop, never run inline: the
+        store calls this holding its lock, and the reference counter's
+        delete path takes the store lock under its own (an ABBA
+        deadlock between a spill and a last-ref drop)."""
+        core = self.core_worker or self.cluster.core_worker
+        if core is None:
+            return
+        self.loop.post(
+            lambda: core.reference_counter.set_spilled_url(object_id, url),
+            "raylet.record_spilled_url")
+
     # ---- lease protocol (NodeManagerService) ----------------------------
     def request_worker_lease(self, spec: TaskSpec, reply: Callable,
                              grant_or_reject: bool = False):
@@ -170,12 +220,18 @@ class Raylet:
             return
         self._dead = True
         # The loop first: no tick may start a worker once the pool's
-        # shutdown has taken its list of workers to stop and join.
+        # shutdown has taken its list of workers to stop and join.  The
+        # pulls next, failing their waiters, so that no worker waits on
+        # one; the spill thread before its store is emptied.
         self.loop.stop()
+        self.object_manager.stop()
         self.worker_pool.shutdown()
+        self.local_object_manager.stop()
+        self.object_store.close()
 
     def debug_string(self) -> str:
         return (f"Raylet {self.node_name} ({self.node_id.hex()[:8]}): "
                 f"res={self.local_resources.to_float_dict('available')} "
                 f"queues={self.cluster_task_manager.debug_state()} "
-                f"workers={self.worker_pool.num_total()}")
+                f"workers={self.worker_pool.num_total()} "
+                f"objects={self.object_store.num_objects()}")

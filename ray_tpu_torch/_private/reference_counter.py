@@ -3,9 +3,11 @@
 A port of ``ray_tpu._private.reference_counter`` for the PyTorch port,
 with plain ``threading`` locks in place of the lock-order witness's and
 a logged warning where the reference counts a swallowed exception (both
-debug planes, ROADMAP A.4b.7).  The reference's borrowers, per-object
-delete callbacks, pinned nodes and spill records serve other owners and
-the node store; they come with process workers and the object plane.
+debug planes, ROADMAP A.4b.7).  The node store's part is here: each
+object's pinned node and spill record (``set_pinned_node``,
+``set_spilled_url``, ``describe``, which the ``ObjectLostError`` message
+reads) and per-object delete callbacks (``add_on_delete``).  The
+reference's borrowers serve other owners and come with process workers.
 
 Parity target: reference ``src/ray/core_worker/reference_count.h:61`` —
 per-owner counts of (a) local Python refs, (b) refs held by submitted
@@ -38,7 +40,8 @@ logger = logging.getLogger(__name__)
 
 class Reference:
     __slots__ = ("local_refs", "submitted_task_refs", "contained_in",
-                 "contains", "owned", "lineage_task_id", "out_of_scope")
+                 "contains", "owned", "lineage_task_id", "on_delete",
+                 "pinned_node", "spilled_url", "out_of_scope")
 
     def __init__(self, owned: bool = True):
         self.local_refs = 0
@@ -50,6 +53,9 @@ class Reference:
         # Task that created this object — retained while reconstruction is
         # possible (lineage pinning, ray_config_def.h:97).
         self.lineage_task_id: Optional[TaskID] = None
+        self.on_delete: List[Callable[[ObjectID], None]] = []
+        self.pinned_node = None
+        self.spilled_url: Optional[str] = None
         self.out_of_scope = False
 
     def total(self) -> int:
@@ -255,6 +261,37 @@ class ReferenceCounter:
             ref = stripe.refs.get(object_id)
             return ref.lineage_task_id if ref else None
 
+    def set_pinned_node(self, object_id: ObjectID, node_id):
+        stripe = self._stripe(object_id)
+        with stripe.lock:
+            ref = stripe.refs.get(object_id)
+            if ref is not None:
+                ref.pinned_node = node_id
+
+    def describe(self, object_id: ObjectID) -> Optional[dict]:
+        """Snapshot of one reference (ownership, counts, pinned node,
+        spill record): the ObjectLostError message reads it."""
+        stripe = self._stripe(object_id)
+        with stripe.lock:
+            ref = stripe.refs.get(object_id)
+            if ref is None:
+                return None
+            return {
+                "owned": ref.owned,
+                "local_refs": ref.local_refs,
+                "submitted_task_refs": ref.submitted_task_refs,
+                "pinned_node": ref.pinned_node,
+                "spilled_url": ref.spilled_url,
+                "out_of_scope": ref.out_of_scope,
+            }
+
+    def set_spilled_url(self, object_id: ObjectID, url: str):
+        stripe = self._stripe(object_id)
+        with stripe.lock:
+            ref = stripe.refs.get(object_id)
+            if ref is not None:
+                ref.spilled_url = url
+
     # ---- deletion -------------------------------------------------------
     def subscribe_deleted(self, cb: Callable[[ObjectID], None]):
         """Register a callback fired when an object goes out of scope
@@ -262,12 +299,27 @@ class ReferenceCounter:
         with self._subs_lock:
             self._delete_subscribers.append(cb)
 
+    def add_on_delete(self, object_id: ObjectID,
+                      cb: Callable[[ObjectID], None]):
+        """``cb(object_id)`` when this object goes out of scope (at once
+        if it already has)."""
+        stripe = self._stripe(object_id)
+        fire = False
+        with stripe.lock:
+            ref = stripe.refs.get(object_id)
+            if ref is None or ref.out_of_scope:
+                fire = True
+            else:
+                ref.on_delete.append(cb)
+        if fire:
+            cb(object_id)
+
     def _maybe_delete_locked(self, stripe: _RefStripe,
                              object_id: ObjectID):
         """Out-of-scope check for ``object_id``; must hold
         ``stripe.lock`` (the stripe owning ``object_id``).  Removes the
-        ref from the table and returns a ``(object_id, contains)`` work
-        item for :meth:`_run_delete_cascade`, or
+        ref from the table and returns a ``(object_id, on_delete,
+        contains)`` work item for :meth:`_run_delete_cascade`, or
         ``None`` if the object stays live.  Callbacks and cross-stripe
         edge removal are deliberately NOT done here — they need other
         stripes' locks (or none)."""
@@ -276,7 +328,7 @@ class ReferenceCounter:
             return None
         ref.out_of_scope = True
         del stripe.refs[object_id]
-        return (object_id, ref.contains)
+        return (object_id, ref.on_delete, ref.contains)
 
     def _run_delete_cascade(self, item) -> None:
         """Run the out-of-scope cascade for one freed object, holding
@@ -288,7 +340,7 @@ class ReferenceCounter:
         store/lineage layers and must not create lock-order edges."""
         worklist = collections.deque([item])
         while worklist:
-            object_id, contains = worklist.popleft()
+            object_id, on_delete, contains = worklist.popleft()
             for inner in contains:
                 istripe = self._stripe(inner)
                 inner_item = None
@@ -301,7 +353,7 @@ class ReferenceCounter:
                 if inner_item is not None:
                     worklist.append(inner_item)
             with self._subs_lock:
-                callbacks = list(self._delete_subscribers)
+                callbacks = list(on_delete) + list(self._delete_subscribers)
             for cb in callbacks:
                 try:
                     cb(object_id)

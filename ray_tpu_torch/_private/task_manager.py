@@ -3,9 +3,10 @@
 A copy of ``ray_tpu._private.task_manager`` for the PyTorch port, with
 plain ``threading`` locks.  The reference emits a task event at each
 transition (``ray_tpu.gcs.task_events``); those belong to the GCS
-(ROADMAP A.4b.4) and are left out.  The lineage bookkeeping is kept for
-the object plane's reconstruction (A.4b.2), which nothing here calls
-yet.
+(ROADMAP A.4b.4) and are left out.  A task's spec stays in the lineage
+table until ``evict_lineage`` (its returns went out of scope) or the
+lineage budget drops it, and ``get_spec``/``lineage_spec_for_object``
+give it to the core worker's ``recover_object``.
 
 Parity: reference ``src/ray/core_worker/task_manager.{h,cc}`` — tracks every
 submitted task until its returns are sealed; retries failed tasks up to
@@ -91,6 +92,13 @@ class TaskManager:
     def is_pending(self, task_id: TaskID) -> bool:
         with self._lock:
             return task_id in self._pending
+
+    def get_spec(self, task_id: TaskID) -> Optional[TaskSpec]:
+        with self._lock:
+            t = self._pending.get(task_id)
+            if t is not None:
+                return t.spec
+            return self._lineage.get(task_id)
 
     # ---- completion/failure (called from transport) ---------------------
     def complete_task(self, spec: TaskSpec):

@@ -2,9 +2,11 @@
 
 A port of ``ray_tpu._private.worker`` for the PyTorch port (reference
 ``python/ray/worker.py``): ``init`` starts an in-process cluster (a
-``LocalCluster`` with one head raylet) or attaches to the caller's,
-attaches the driver's ``CoreWorker``; ``shutdown`` stops every worker
-thread, raylet loop and the reference counter's release thread; and the
+``LocalCluster`` with one head raylet, whose node store holds
+``object_store_memory`` bytes) or attaches to the caller's, attaches the
+driver's ``CoreWorker``; ``shutdown`` stops every worker thread, raylet
+loop, pull thread and spill thread and the reference counter's release
+thread; and the
 public ``get``/``put``/``wait``/``nodes``/``cluster_resources``/
 ``available_resources`` bodies that ``ray_tpu_torch`` re-exports.
 
@@ -59,14 +61,17 @@ def global_worker_or_none() -> Optional[Worker]:
 
 def init(*, num_cpus: Optional[float] = None,
          num_gpus: Optional[float] = None, resources: Optional[dict] = None,
+         object_store_memory: Optional[int] = None,
          ignore_reinit_error: bool = False,
          _system_config: Optional[dict] = None, _cluster=None,
          device=None):
     """Start an in-process cluster and attach this driver.
 
     The head raylet gets ``num_cpus`` CPUs (the host's count by default,
-    as the reference), ``num_gpus`` GPUs and ``resources``; its batched
-    tick runs on ``device`` (the card unless ``"cpu"``).  ``_cluster``
+    as the reference), ``num_gpus`` GPUs and ``resources``, and a node
+    store of ``object_store_memory`` bytes (``Config.object_store_memory``,
+    2 GiB, by default); its batched tick runs on ``device`` (the card
+    unless ``"cpu"``).  ``_cluster``
     attaches to the caller's ``LocalCluster`` instead, whose device
     holds; ``shutdown`` stops it as well, as the reference does.
     """
@@ -94,7 +99,8 @@ def init(*, num_cpus: Optional[float] = None,
             cluster = LocalCluster(device=device)
             try:
                 cluster.add_node({k: v for k, v in head.items() if v},
-                                 node_name="head")
+                                 node_name="head",
+                                 object_store_memory=object_store_memory)
             except BaseException:
                 cluster.shutdown()
                 raise
@@ -108,8 +114,9 @@ def init(*, num_cpus: Optional[float] = None,
 
 
 def shutdown():
-    """Detach the driver and stop the cluster: every worker thread and
-    raylet loop, and the reference counter's release thread."""
+    """Detach the driver and stop the cluster: every worker thread,
+    raylet loop, pull and spill thread, and the reference counter's
+    release thread."""
     w = global_worker_or_none()
     if w is None or not w.connected:
         return

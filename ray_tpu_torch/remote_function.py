@@ -95,7 +95,8 @@ class RemoteFunction:
         # RemoteFunction defined at module scope outlives init/shutdown
         # cycles (a cached id would dangle into the new cluster's table).
         self._function_id = core.function_manager.export(self._function)
-        task_args, _, borrowed = core.build_args(pack_args(args, kwargs))
+        task_args, _, holders, borrowed = core.build_args(
+            pack_args(args, kwargs))
         parent = worker_context.current_task_spec()
         cfg_retries = options.get("max_retries")
         spec = make_spec(
@@ -116,7 +117,7 @@ class RemoteFunction:
             runtime_env=options.get("runtime_env") or None,
             borrowed_ids=borrowed,
         )
-        refs = core.submit_task(spec)
+        refs = core.submit_task(spec, holders)
         if spec.num_returns == 0:
             return None
         if spec.num_returns == 1:

@@ -6,9 +6,10 @@ Each case runs once under ``ray_tpu.init(num_cpus=4)`` and once under
 ``ray_tpu_torch.init(num_cpus=4, device="cpu")``, on inputs drawn from
 the same numpy seed, and the two outcomes must be equal: the values, or
 the error's type and message (ids masked, the package's name read as
-one).  The cases are those of ``tests/test_basic.py`` but its two large
-objects, which need a node store the port does not have yet; the four
-of ``tests/test_reference_counting.py`` with the owner's memory-store
+one).  The cases are those of ``tests/test_basic.py``, its two large
+objects through the node store included (the rest of the object plane
+is ``tests/test_torch_object_plane.py``); the four of
+``tests/test_reference_counting.py`` with the owner's memory-store
 entry counts; retries; ``wait`` under controlled completion; the
 stand-ins that raise; ``init`` without a card.  The task functions live
 at module level, so that both packages' function export pickles them by
@@ -21,6 +22,8 @@ that no thread of the port outlives ``shutdown``.
 import gc
 import importlib
 import re
+import shutil
+import tempfile
 import threading
 import time
 
@@ -129,6 +132,10 @@ def _make_big(nbytes):
     return np.zeros(nbytes, np.uint8)
 
 
+def _total(a):
+    return float(a.sum())
+
+
 # -- running a case under each package ----------------------------------------
 
 def _normalize(message):
@@ -144,8 +151,12 @@ def _outcome(fn):
 
 
 def _run(pkg_name, case, seed, init_kw=None):
+    """``case`` under ``pkg_name``'s ``init``, its node stores spilling
+    under a temporary directory that goes with the run."""
     pkg = importlib.import_module(pkg_name)
-    pkg.init(**(init_kw or INIT[pkg_name]))
+    temp_dir = tempfile.mkdtemp(prefix=f"{pkg_name}-")
+    pkg.init(**(init_kw or INIT[pkg_name]),
+             _system_config={"temp_dir": temp_dir})
     try:
         return _outcome(lambda: case(pkg, pkg_name,
                                      np.random.default_rng(seed)))
@@ -154,6 +165,9 @@ def _run(pkg_name, case, seed, init_kw=None):
             event.set()
         _GATES.clear()
         pkg.shutdown()
+        importlib.import_module(
+            f"{pkg_name}._private.config").initialize_config()
+        shutil.rmtree(temp_dir, ignore_errors=True)
 
 
 def _both(case, seed=0):
@@ -198,12 +212,26 @@ def case_put_get_roundtrip(pkg, name, rng):
 
 
 def case_put_get_numpy(pkg, name, rng):
-    # 64 KiB: test_basic's 1 MiB array leaves the owner's memory store
-    # for a node store, which the port does not have yet (its put
-    # raises, test_stand_ins_raise_not_implemented).
-    x = rng.random((64, 256)).astype(np.float32)
+    # test_basic's 1 MiB array: it leaves the owner's memory store for
+    # the node store.
+    x = rng.random((1024, 256)).astype(np.float32)
     y = pkg.get(pkg.put(x))
     return y.dtype.str, y.shape, y.tobytes() == x.tobytes()
+
+
+def case_large_object_through_node_store(pkg, name, rng):
+    x = np.zeros(10 * 1024 * 1024, dtype=np.uint8)
+    x[::4096] = rng.integers(0, 255, x.size // 4096, dtype=np.uint8)
+    y = pkg.get(pkg.put(x))
+    return y.nbytes, bool((y == x).all())
+
+
+def case_large_arg_promotion(pkg, name, rng):
+    big = np.ones(2 * 1024 * 1024, dtype=np.float64)
+    big[rng.integers(0, big.size, 100)] = 2.0
+    got = pkg.get(pkg.remote(_total).remote(big))
+    return got == float(big.sum()), \
+        int(pkg.get(pkg.remote(_make_big).remote(200 * 1024)).nbytes)
 
 
 def case_num_returns(pkg, name, rng):
@@ -302,7 +330,9 @@ def case_function_id_not_confused_by_id_reuse(pkg, name, rng):
 
 BASIC_CASES = [case_simple_task, case_kwargs_and_defaults,
                case_object_ref_args, case_kwarg_object_ref,
-               case_put_get_roundtrip, case_put_get_numpy, case_num_returns,
+               case_put_get_roundtrip, case_put_get_numpy,
+               case_large_object_through_node_store,
+               case_large_arg_promotion, case_num_returns,
                case_num_returns_zero, case_options_override,
                case_error_propagation, case_error_through_dependency,
                case_nested_tasks, case_wait, case_wait_validation,
@@ -492,23 +522,24 @@ def test_wait_with_controlled_completion_matches_jax():
 # -- the stand-ins and the card -----------------------------------------------
 
 def test_stand_ins_raise_not_implemented():
-    """What the port does not have yet raises, naming its item: a
-    200 KiB put, argument and return (the node store, A.4b.2), a
-    placement-group strategy (A.4b.3), a runtime env, an actor class,
-    process workers."""
+    """What the port does not have yet raises, naming its item: the
+    native shared-memory object store (A.4b.2b), a placement-group
+    strategy (A.4b.3), a runtime env, an actor class, process
+    workers."""
+    from ray_tpu_torch._private.config import initialize_config
     from ray_tpu_torch.util.scheduling_strategies import \
         PlacementGroupSchedulingStrategy
+    try:
+        with pytest.raises(NotImplementedError, match="A.4b.2b"):
+            ray_tpu_torch.init(num_cpus=1, device="cpu", _system_config={
+                "use_native_object_store": True})
+    finally:
+        initialize_config()
+    assert not ray_tpu_torch.is_initialized()
     ray_tpu_torch.init(num_cpus=2, device="cpu")
     try:
         big = np.zeros(200 * 1024, np.uint8)
-        with pytest.raises(NotImplementedError, match="A.4b.2"):
-            ray_tpu_torch.put(big)
         f = ray_tpu_torch.remote(_identity)
-        with pytest.raises(NotImplementedError, match="A.4b.2"):
-            f.remote(big)
-        with pytest.raises(NotImplementedError, match="A.4b.2"):
-            ray_tpu_torch.get(ray_tpu_torch.remote(_make_big).remote(
-                200 * 1024))
         pg = PlacementGroupSchedulingStrategy(object())
         with pytest.raises(NotImplementedError, match="A.4b.3"):
             f.options(scheduling_strategy=pg).remote(1)
@@ -516,9 +547,8 @@ def test_stand_ins_raise_not_implemented():
             f.options(runtime_env={"env_vars": {"A": "1"}}).remote(1)
         with pytest.raises(NotImplementedError, match="actors"):
             ray_tpu_torch.remote(type("Actor", (), {}))
-        # Under the limit all of them run.
-        assert ray_tpu_torch.get(f.remote(big[:50 * 1024])).nbytes == \
-            50 * 1024
+        # Without those options the same call runs.
+        assert ray_tpu_torch.get(f.remote(big)).nbytes == 200 * 1024
     finally:
         ray_tpu_torch.shutdown()
     with pytest.raises(NotImplementedError, match="thread workers"):

@@ -513,8 +513,8 @@ def test_object_ref_argument_waits_in_the_owners_memory_store(
     each package's raylet: one argument already sealed in its owner's
     memory store dispatches on the first tick; the other, sealed only
     after its lease arrived, waits in ``get_async`` and dispatches when
-    the owner seals it.  The JAX stub's object manager is the memory-store
-    half of the reference's (``is_local_or_inline``, ``pull_async``)."""
+    the owner seals it.  Each stub's object manager is the memory-store
+    half of both packages' (``is_local_or_inline``, ``pull_async``)."""
     import types
 
     from ray_tpu._private import object_store as jstore
@@ -534,11 +534,10 @@ def test_object_ref_argument_waits_in_the_owners_memory_store(
             (rt.jids.ObjectID, rt.tids.ObjectID)):
         store = store_mod.MemoryStore()
         stub.core_worker = types.SimpleNamespace(memory_store=store)
-        if stub is pair[0]:
-            stub.object_manager = types.SimpleNamespace(
-                is_local_or_inline=store.contains,
-                pull_async=lambda oid, cb, store=store: store.get_async(
-                    oid, lambda _e: cb(True)))
+        stub.object_manager = types.SimpleNamespace(
+            is_local_or_inline=store.contains,
+            pull_async=lambda oid, cb, store=store: store.get_async(
+                oid, lambda _e: cb(True)))
         store.put(idtype(oids[0]), ser.serialize("sealed before"))
         specs = [make(f) for f in fields]
         for key, spec in enumerate(specs):

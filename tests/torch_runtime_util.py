@@ -102,6 +102,10 @@ class PortStubRaylet:
         self.node_id = tids.NodeID(node_id)
         self.cluster_view = view
         self.cluster = None
+        self.object_manager = types.SimpleNamespace(
+            is_local_or_inline=lambda oid: True)
+        self.object_store = types.SimpleNamespace(pin=lambda oid: None,
+                                                  unpin=lambda oid: None)
         self.device = torch.device(device)
         self.lease_stats = _lease_stats()
         self._dead = False
