@@ -98,6 +98,38 @@ each phase and read after it):
 each O phase also checks its raylets' error counts and that no thread of
 the port outlived its shutdown;
 
+placement groups and the autoscaler's loop on the card
+(``ray_tpu_torch.tools.profile_groups``; the launch count zeroed before
+each phase and read after it):
+
+  G1. ``init(_cluster=...)`` on R3's 64 raylets: four groups of four
+      ``{"CPU": 1}`` bundles under each strategy, then a 32-bundle SPREAD
+      group, each waited before the next, every solve the device bundle
+      solve: every group CREATED with the bundle nodes of a
+      ``device="cpu"`` run of the same phase, a task into each bundle on
+      its bundle's node seeing its group, the batched tick's
+      ``class_fill`` at the R_pad the groups' formatted columns widened
+      the views to (above 64), bundle-solve placements and no error, and
+      every resource back after the groups are removed: ms from
+      ``placement_group()`` to ``wait()`` (p50, p99), ms per bundle
+      solve, tasks/s into bundles, R_pad, full uploads, launches and
+      (under ``torch.profiler``) the card's idle share; then
+      ``class_fill`` on the widest call's inputs that G1 made, and on the
+      bench problem widened to that R_pad (past the shared-memory
+      budget: the kernel's global route), each bit-equal to and timed
+      beside its plain version;
+  A1. a ``Monitor`` with ``FakeMultiNodeProvider`` (a 1-CPU head and
+      ``tests/test_autoscaler.py``'s worker type, 64 workers at most),
+      a burst of 2,048 tasks in 64 shapes that need the worker's
+      ``bigmem``, a pending STRICT_SPREAD group and a
+      ``request_resources``: each round's launches equal to a
+      ``device="cpu"`` autoscaler's on the same load metrics, the
+      autoscaler's solves on ``class_fill``, every task done on a
+      launched node, then the workers terminated down to
+      ``min_workers`` once idle: ms per ``update_all``, launches, nodes
+      launched and terminated, seconds from the burst to the last
+      result;
+
 and the transformer's forward pass (``Transformer``) at the width of
 ``bench_model.py``'s single-chip model (vocab 32,000, d_model 1024, 16
 heads, d_ff 4096; ``ray_tpu_torch.models.bench``):
@@ -958,6 +990,148 @@ def phase_objects(cf):
     return out
 
 
+def _widest_fill(cf, tb):
+    """Wraps ``tb.class_fill`` (the tick's call of the kernel) to keep
+    copies of the inputs of its widest call; returns (the record,
+    restore).  The wrapped call is the kernel's, counted as before."""
+    real = tb.class_fill
+    widest = {}
+
+    def keep(av_t, total_t, demand, counts, accel_class, accel_node, thr,
+             cost, invert, shifts):
+        if av_t.shape[0] > widest.get("r_pad", 0):
+            widest.clear()
+            widest.update(r_pad=av_t.shape[0], thr=thr, invert=invert, x={
+                k: v.clone() for k, v in zip(
+                    ("av_t", "total_t", "demand", "counts", "accel_class",
+                     "accel_node", "cost", "shifts"),
+                    (av_t, total_t, demand, counts, accel_class, accel_node,
+                     cost, shifts))})
+        return real(av_t, total_t, demand, counts, accel_class, accel_node,
+                    thr, cost, invert, shifts)
+    tb.class_fill = keep
+
+    def restore():
+        tb.class_fill = real
+    return widest, restore
+
+
+def _time_fill(torch, cf, sb, x, thr, invert, label):
+    """``class_fill`` on ``x`` against its plain version, in
+    ``phase_kernel``'s manner: bit-equal, then both timed."""
+    from ray_tpu_torch.tools.timing import events_ms
+    r_pad, n_pad = x["av_t"].shape
+    av_k, al_k = sb.fill_call(cf.class_fill, x, thr, invert)
+    torch.cuda.synchronize()
+    av_r, al_r = sb.fill_call(cf.class_fill_reference, x, thr, invert)
+    torch.cuda.synchronize()
+    if not (torch.equal(al_k, al_r) and torch.equal(av_k, av_r)):
+        raise AssertionError(
+            f"{label}: allocs differ in {int((al_k != al_r).sum())} "
+            f"entries, availability in {int((av_k != av_r).sum())}")
+    ms = events_ms(lambda: sb.fill_call(cf.class_fill, x, thr, invert), iters=20)
+    plain_ms = events_ms(lambda: sb.fill_call(cf.class_fill_reference, x, thr,
+                                         invert), iters=3, warmup=1)
+    bound_ms, bound_by, nbytes = fill_bound(x, al_k)
+    out = {"c_pad": x["demand"].shape[0], "n_pad": n_pad, "r_pad": r_pad,
+           "route": cf.kernel_route(n_pad, r_pad), "max_abs_err": 0.0,
+           "placed": int(al_k.sum().item()), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+    log(f"[{label}] class_fill C_pad={out['c_pad']} N_pad={n_pad} "
+        f"R_pad={r_pad} ({out['route']} route): bit-equal, "
+        f"{out['placed']} placed; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms * 1e3:.2f} us "
+        f"({nbytes / 1e6:.2f} MB, {bound_by})")
+    return out
+
+
+def phase_groups(torch, cf, tb, sb):
+    """G1: ``profile_groups.groups`` on the card against a
+    ``device="cpu"`` run (module docstring), then ``class_fill`` at G1's
+    widest call and at the bench problem widened to its R_pad."""
+    from ray_tpu_torch.tools import profile_groups as pgr
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    from ray_tpu_torch.tools.profile_tasks import _profiled
+    cpu = pgr.groups("cpu")
+    check_no_threads("G1 (cpu)")
+    widest, restore = _widest_fill(cf, tb)
+    cf.class_fill.launches = 0
+    try:
+        out = _profiled(torch, lambda: pgr.groups("cuda"))
+    finally:
+        restore()
+    out["launches"] = cf.class_fill.launches
+    check_no_threads("G1")
+    if out["placements"] != cpu["placements"]:
+        raise AssertionError(f"G1: bundle nodes differ from the CPU run: "
+                             f"{out['placements']} vs {cpu['placements']}")
+    if out["launches"] < 1 or out["launches"] != out["batched_ticks"]:
+        raise AssertionError(f"G1: class_fill launched {out['launches']} "
+                             f"times for {out['batched_ticks']} batched "
+                             "ticks")
+    if out["r_pad"] <= 64 or widest.get("r_pad", 0) != out["r_pad"]:
+        raise AssertionError(f"G1: class_fill at R_pad "
+                             f"{widest.get('r_pad')}, solvers at "
+                             f"{out['r_pad']}: not past 64")
+    log(f"[G1] {out['groups']} groups ({out['bundles']} bundles) on "
+        f"{pgr.N_RAYLETS} raylets, all CREATED on the CPU run's nodes; "
+        f"placement_group() to wait() p50 {out['create_wait_p50_ms']:.2f} "
+        f"ms p99 {out['create_wait_p99_ms']:.2f} ms; {out['bundle_solves']} "
+        f"bundle solves at {out['bundle_solve_ms']:.2f} ms each "
+        f"({out['bundle_stats']}); {out['bundles']} tasks on their "
+        f"bundles' nodes at {out['tasks_per_s']:.0f} tasks/s; views of "
+        f"{out['view_columns']} columns, R_pad {out['r_pad']}, full uploads "
+        f"{out['full_syncs']}; class_fill launches {out['launches']}; "
+        f"device {out['device_ms']:.2f} ms of {out['profiled_wall_ms']:.0f} "
+        f"ms, idle share {out['idle_share']:.5f}; resources restored")
+    out["fill_g1"] = _time_fill(torch, cf, sb, widest["x"], widest["thr"],
+                                widest["invert"], "G1 fill")
+    # The bench problem (10,000 nodes) widened to G1's R_pad by empty
+    # columns, as bundles widen a large cluster's view.
+    rng = np.random.default_rng(sb.SEED)
+    avail, total, demand, counts, an, ac = sb.build_problem(rng)
+    pad = out["r_pad"] - avail.shape[1]
+    widen = lambda a: np.pad(a, ((0, 0), (0, pad)))  # noqa: E731
+    x = sb.fill_inputs(widen(avail), widen(total), widen(demand), counts,
+                       an, ac, np.zeros((demand.shape[0], avail.shape[0])),
+                       torch.device("cuda"))
+    out["fill_wide"] = _time_fill(torch, cf, sb, x, 0.5, 0.0, "wide fill")
+    if out["fill_wide"]["route"] != "global":
+        raise AssertionError("the widened bench problem should take the "
+                             "kernel's global route")
+    return out
+
+
+def phase_autoscaler_loop(cf):
+    """A1: ``profile_groups.autoscaler_loop`` on the card (module
+    docstring); its rounds are held to the CPU twin inside."""
+    from ray_tpu_torch.tools import profile_groups as pgr
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    cf.class_fill.launches = 0
+    out = pgr.autoscaler_loop("cuda")
+    out["launches"] = cf.class_fill.launches
+    check_no_threads("A1")
+    if out["autoscaler_solves"] < 1 or \
+            out["launches"] < out["autoscaler_solves"]:
+        raise AssertionError(f"A1: {out['autoscaler_solves']} autoscaler "
+                             f"solves, class_fill launches "
+                             f"{out['launches']}")
+    if out["workers_left"] != 0:
+        raise AssertionError(f"A1: {out['workers_left']} workers left")
+    log(f"[A1] {out['tasks']} tasks done on launched nodes in "
+        f"{out['burst_to_last_result_s']:.2f} s (burst to last result); "
+        f"{out['rounds']} rounds, each one's launches equal to the CPU "
+        f"autoscaler's; update_all mean {out['update_ms_mean']:.1f} ms "
+        f"(p50 {out['update_ms_p50']:.1f}, max {out['update_ms_max']:.1f}); "
+        f"autoscaler solves on class_fill {out['autoscaler_solves']}, "
+        f"class_fill launches {out['launches']} (with the raylets' ticks "
+        f"{out['batched_ticks']}); nodes launched {out['nodes_launched']} "
+        f"(peak {out['peak_workers']}), terminated "
+        f"{out['nodes_terminated']} down to min_workers in "
+        f"{out['drain_rounds']} rounds")
+    return out
+
+
 def phase_cluster(torch, cf):
     """R3: ``profile_cluster.cluster_burst`` on the card: a burst of
     ``R3_LEASES`` leases across a ``LocalCluster`` of 64 raylets from a
@@ -1731,7 +1905,11 @@ def main() -> int:
                  "remote_function", "tools.profile_tasks",
                  "tools.profile_objects", "_private.object_manager",
                  "_private.local_object_manager",
-                 "autoscaler.resource_demand_scheduler"):
+                 "autoscaler.resource_demand_scheduler",
+                 "gcs.placement_group_manager", "util.placement_group",
+                 "autoscaler.load_metrics", "autoscaler.node_provider",
+                 "autoscaler.autoscaler", "autoscaler.monitor",
+                 "autoscaler.sdk", "tools.profile_groups"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
@@ -1768,6 +1946,8 @@ def main() -> int:
     c1 = phase_tasks_single(cf)
     c2 = phase_tasks_cluster(cf)
     objects = phase_objects(cf)
+    g1 = phase_groups(torch, cf, tb, sb)
+    a1 = phase_autoscaler_loop(cf)
     fb, fb128 = phase_flash_bwd(torch, fa, mb)
     t1 = phase_train_f32(torch, tt, fa, mb, mb.CONFIG, "train f32")
     t3f = phase_train_f32(torch, tt, fa, mb, mb.MOE_CONFIG, "moe train f32")
@@ -1820,7 +2000,8 @@ def main() -> int:
         "launches": (launches_a + launches_b + r1["launches"] +
                      r2["launches"] + r3["launches"] + c1["launches"] +
                      c2["launches"] +
-                     sum(o["launches"] for o in objects.values())),
+                     sum(o["launches"] for o in objects.values()) +
+                     g1["launches"] + a1["launches"]),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -1828,6 +2009,8 @@ def main() -> int:
         "bound_us": k["bound_ms"] * 1e3,
         "bound_by": k["bound_by"],
         "library_ms": None,
+        "g1_widest": g1["fill_g1"],
+        "wide_global_route": g1["fill_wide"],
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -1939,6 +2122,14 @@ def main() -> int:
                         "batched_ticks", "spillbacks",
                         "spillback_rejections", "peak_workers")},
                     "objects": objects,
+                    "groups": {k: g1[k] for k in (
+                        "groups", "bundles", "create_wait_p50_ms",
+                        "create_wait_p99_ms", "bundle_solves",
+                        "bundle_solve_ms", "tasks_per_s", "view_columns",
+                        "r_pad", "full_syncs", "batched_ticks",
+                        "bundle_stats", "device_ms", "profiled_wall_ms",
+                        "idle_share", "launches")},
+                    "autoscaler_loop": a1,
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "runtime": r1["launches"],
@@ -1948,6 +2139,8 @@ def main() -> int:
                                  "tasks_cluster": c2["launches"],
                                  "objects": {k: o["launches"] for k, o in
                                              objects.items()},
+                                 "groups": g1["launches"],
+                                 "autoscaler_loop": a1["launches"],
                                  "forward": launches_m,
                                  "moe_forward": m3["launches"],
                                  "train_forward": t2["launches"][0],

@@ -2,6 +2,8 @@
 ``get``, ``put``, ``wait``) on thread workers of an in-process cluster,
 with its object plane (node stores that spill, pulls and relay between
 raylets, lineage reconstruction);
+placement groups (``ray_tpu_torch.util``) and the autoscaler's loop
+(``ray_tpu_torch.autoscaler``);
 the batched scheduling tick and its placement-group and sinkhorn solves;
 the raylet's scheduling plane around the tick (``Raylet``, an in-process
 ``LocalCluster``) and the autoscaler's demand solve
@@ -33,6 +35,8 @@ from ray_tpu_torch.parallel import (MeshConfig, build_mesh,
 from ray_tpu_torch.runtime_context import get_runtime_context
 from ray_tpu_torch.scheduler.torch_backend import (BatchSolver,
                                                    DeviceRuntimeSolver)
+# The placement-group API, as ``ray_tpu.util`` (``ray.util``).
+from ray_tpu_torch import util  # noqa: E402,F401
 
 __all__ = ["BatchSolver", "DeviceRuntimeSolver", "LocalCluster",
            "MeshConfig", "ObjectRef", "Raylet", "ResourceDemandScheduler",
@@ -41,7 +45,7 @@ __all__ = ["BatchSolver", "DeviceRuntimeSolver", "LocalCluster",
            "get_runtime_context", "infer_mesh_config", "init", "init_params",
            "is_initialized", "loss_fn", "make_train_state",
            "make_train_step", "nodes", "param_specs", "put", "remote",
-           "shutdown", "single_device_mesh", "wait"]
+           "shutdown", "single_device_mesh", "util", "wait"]
 
 
 def remote(*args, **kwargs):

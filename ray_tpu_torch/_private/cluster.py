@@ -14,8 +14,17 @@ object directory every raylet's pulls read (``object_directory``,
 reference ``cluster.py:31``), and wires the driver's core worker into
 every raylet (``attach_core_worker``).  ``remove_node`` delivers the
 node's death as the reference's GCS does on an intentional shutdown: the
-directory forgets the node's copies and the core worker reconstructs the
-objects that lost their last one.
+directory forgets the node's copies, the core worker reconstructs the
+objects that lost their last one and the placement-group manager
+reschedules the bundles the node held.
+
+It also holds the GCS side of placement groups: a GCS-side resource view
+(``resource_view``, the reference ``GcsResourceManager.view``) fed from
+each broadcast round's rows as the reference's poll feeds it (a node's
+row when it joins, its availability after that), the GCS event loop
+(``loop``, thread ``ray_tpu_torch::gcs``) that the manager retries on,
+the ``placement_group_table`` and the manager itself
+(``placement_group_manager``, ``ray_tpu_torch.gcs``).
 
     cluster = LocalCluster(device="cpu")          # "cuda" by default
     head = cluster.add_node({"CPU": 4})
@@ -23,6 +32,9 @@ objects that lost their last one.
     head.request_worker_lease_batch(specs, reply)
     ...
     cluster.shutdown()
+
+The device is where the raylets' batched ticks and the placement-group
+bundle solve run.
 
 There is no heartbeat, so no node is ever suspect, and a node dies only
 by ``remove_node`` (node death by missed heartbeats is ROADMAP A.4b.6).
@@ -32,11 +44,17 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Dict, List, Optional
 
 from ray_tpu_torch._private.config import get_config
+from ray_tpu_torch._private.event_loop import EventLoop
 from ray_tpu_torch._private.object_manager import ObjectDirectory
 from ray_tpu_torch._private.raylet import Raylet
+from ray_tpu_torch.gcs.placement_group_manager import \
+    GcsPlacementGroupManager
+from ray_tpu_torch.scheduler.resources import (ClusterResourceView,
+                                               NodeResources, _quantize)
 
 logger = logging.getLogger(__name__)
 
@@ -54,6 +72,10 @@ class LocalCluster:
         self.core_worker = None
         self.function_table = FunctionTable()
         self.object_directory = ObjectDirectory()
+        self.resource_view = ClusterResourceView()
+        self.placement_group_table = Table()
+        self.loop = EventLoop("gcs")
+        self.placement_group_manager = GcsPlacementGroupManager(self)
         period = get_config().gcs_resource_broadcast_period_milliseconds
         self._thread = threading.Thread(
             target=self._broadcast_loop, args=(period / 1000.0,),
@@ -104,6 +126,16 @@ class LocalCluster:
         lost = self.object_directory.on_node_death(raylet.node_id)
         if core is not None:
             core.on_node_death(raylet.node_id, lost)
+        self.placement_group_manager.on_node_death(raylet.node_id)
+
+    def wait_for_nodes(self, count: int, timeout: float = 10.0) -> bool:
+        """Whether ``count`` raylets are up within ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        while len(self.raylets()) < count:
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.01)
+        return True
 
     def attach_core_worker(self, core_worker) -> None:
         """Make ``core_worker`` the owner every raylet's tasks report to
@@ -135,9 +167,25 @@ class LocalCluster:
                 removed, self._removed_pending = self._removed_pending, []
             rows = {node_id: raylet.get_resource_report()
                     for node_id, raylet in raylets}
+            self._update_gcs_view(rows, removed)
             batch = {"rows": rows, "full": True, "removed": removed}
             for _node_id, raylet in raylets:
                 raylet.update_resource_usage(batch)
+
+    def _update_gcs_view(self, rows: Dict, removed: List) -> None:
+        """The GCS-side view, as the reference's poll keeps it: a
+        joining node's whole row, then its availability only."""
+        view = self.resource_view
+        for node_id in removed:
+            view.remove_node(node_id)
+        for node_id, usage in rows.items():
+            if view.node_resources(node_id) is None:
+                node = NodeResources(usage["total"])
+                node.available = {k: _quantize(v)
+                                  for k, v in usage["available"].items()}
+                view.add_node(node_id, node)
+            else:
+                view.update_available(node_id, usage["available"])
 
     def _broadcast_loop(self, period_s: float) -> None:
         while not self._stop.wait(period_s):
@@ -151,6 +199,7 @@ class LocalCluster:
     def shutdown(self) -> None:
         self._stop.set()
         self._thread.join(timeout=5)
+        self.loop.stop()
         with self._lock:
             raylets = list(self._raylets.values())
             self._raylets.clear()
@@ -164,6 +213,27 @@ def _sum_rows(rows) -> Dict[str, float]:
         for k, v in row.items():
             out[k] = out.get(k, 0.0) + v
     return out
+
+
+class Table:
+    """A locked table of records by key (the GCS table storage's part
+    the placement-group manager writes; the storage is ROADMAP A.4b.4)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._rows: Dict = {}
+
+    def put(self, key, value) -> None:
+        with self._lock:
+            self._rows[key] = value
+
+    def get(self, key):
+        with self._lock:
+            return self._rows.get(key)
+
+    def get_all(self) -> List[tuple]:
+        with self._lock:
+            return list(self._rows.items())
 
 
 class FunctionTable:

@@ -12,15 +12,24 @@ the object plane in the reference's order: the node store
 (``object_store``, ``object_store_memory`` bytes, spilling into
 ``<temp_dir>/spill/<node>``), its spill thread
 (``local_object_manager``) and the pulls (``object_manager``) over the
-cluster's object directory.
+cluster's object directory; and the placement-group bundle two-phase
+commit (``prepare_bundle_resources``, ``commit_bundle_resources``,
+``cancel_resource_reserve``, reference ``raylet.py:283-331``).
 
-The reference raylet's heartbeat thread, its native shared-memory
+The reference raylet's heartbeat thread and its native shared-memory
 segment (ROADMAP A.4b.2b; ``use_native_object_store=True`` raises here)
-and the placement-group bundle two-phase commit belong to items the port
-does not have yet; its resource report carries no host statistics and no
-transfer load (the hint of cross-process pulls, which come with process
-workers).  A raylet made without a cluster (``Raylet(None, ...)``) keeps
-an object directory of its own.
+belong to items the port does not have yet; its resource report carries
+no host statistics and no transfer load (the hint of cross-process
+pulls, which come with process workers).  A raylet made without a
+cluster (``Raylet(None, ...)``) keeps an object directory of its own.
+
+Divergence (ROADMAP C.9): a broadcast row whose totals differ from the
+view's, as a peer's do after it commits or cancels a bundle, replaces
+that node's row, so the bundle's formatted resources reach every view.
+The reference updates only the availability of a known node
+(``ClusterResourceView.update_available``), so a node it knew before the
+commit never shows the bundle's columns there, and a task for the
+bundle submitted at another raylet stays infeasible.
 """
 
 from __future__ import annotations
@@ -40,8 +49,10 @@ from ray_tpu_torch._private.object_manager import (NodeObjectManager,
 from ray_tpu_torch._private.object_store import NodeObjectStore
 from ray_tpu_torch._private.task_spec import TaskSpec
 from ray_tpu_torch._private.worker_pool import WorkerPool
+from ray_tpu_torch.scheduler.bundle_packing import bundle_resource_names
 from ray_tpu_torch.scheduler.resources import (ClusterResourceView,
-                                               NodeResources, _quantize)
+                                               NodeResources,
+                                               ResourceRequest, _quantize)
 
 
 
@@ -96,6 +107,11 @@ class Raylet:
             self, ObjectDirectory() if cluster is None
             else cluster.object_directory)
         self._dead = False
+        # The bundle two-phase commit's ledger: (pg_id, index) -> request.
+        self._prepared_bundles: Dict[tuple, ResourceRequest] = {}
+        self._committed_bundles: Dict[tuple, ResourceRequest] = {}
+        # The last broadcast totals of each peer, to see them change.
+        self._peer_totals: Dict = {}
         # Seed the view with this node's own row: the view's local row
         # is this node's authoritative ledger.
         self.cluster_view.add_node(self.node_id, self.local_resources)
@@ -141,24 +157,41 @@ class Raylet:
         for node_id, usage in rows.items():
             if node_id == self.node_id:
                 continue
-            if node_id not in known:
-                nr = NodeResources(usage["total"])
-                nr.available = {k: _quantize(v)
-                                for k, v in usage["available"].items()}
-                self.cluster_view.add_node(node_id, nr)
-                self.cluster_task_manager.on_cluster_changed()
-            else:
+            if node_id in known and self._same_totals(node_id,
+                                                      usage["total"]):
                 self.cluster_view.update_available(node_id,
                                                    usage["available"])
+                continue
+            # A new node, or new totals (C.9): the whole row.
+            nr = NodeResources(usage["total"])
+            nr.available = {k: _quantize(v)
+                            for k, v in usage["available"].items()}
+            self.cluster_view.update_node(node_id, nr)
+            self._peer_totals[node_id] = dict(usage["total"])
         gone = set(removed) & known
         if is_full:
             gone |= known - set(rows.keys()) - {self.node_id}
         for node_id in gone:
             self.cluster_view.remove_node(node_id)
+            self._peer_totals.pop(node_id, None)
         suspect = batch.get("suspect")
         if suspect is not None:
             self.cluster_view.set_masked(set(suspect))
         self.cluster_task_manager.on_cluster_changed()
+
+    def _same_totals(self, node_id, total: Dict[str, float]) -> bool:
+        """Whether a broadcast row's totals are those the view holds for
+        the known node ``node_id``: the last totals broadcast for it, or,
+        for a row put in the view otherwise, the row's own."""
+        last = self._peer_totals.get(node_id)
+        if last is None:
+            node = self.cluster_view.node_resources(node_id)
+            held = {k: v for k, v in node.total.items() if v} \
+                if node is not None else None
+            if held != {k: _quantize(v) for k, v in total.items() if v}:
+                return False
+            last = self._peer_totals[node_id] = dict(total)
+        return total == last
 
     def _record_spilled_url(self, object_id, url: str):
         """Spill callback: record the spilled_url with the owner's
@@ -213,6 +246,72 @@ class Raylet:
             self.worker_pool.push_worker(worker)
         # A freed worker slot may unblock the dispatch queue.
         self.loop.post(self.local_task_manager.dispatch, "local.dispatch")
+
+    # ---- placement-group bundle 2PC (node_manager.proto:319-330) -------
+    def prepare_bundle_resources(self, pg_id, idx: int,
+                                 req: ResourceRequest) -> bool:
+        """Phase 1: reserve the bundle's resources on this node, or
+        refuse (False) when they are not available now or the node is
+        dead.  Idempotent.  The reservation goes through the view's local
+        row, under the view's lock, as the tick's own grants do."""
+        if self._dead:
+            return False
+        key = (pg_id, idx)
+        if key in self._prepared_bundles or key in self._committed_bundles:
+            return True
+        if not self.cluster_view.subtract(self.node_id, req):
+            return False
+        self._prepared_bundles[key] = req
+        return True
+
+    def commit_bundle_resources(self, pg_id, idx: int,
+                                req: ResourceRequest) -> None:
+        """Phase 2: add the bundle's formatted resources
+        (``bundle_resource_names``) to this node, then retry the parked
+        work: a task for the bundle may be waiting on them."""
+        self._prepared_bundles.pop((pg_id, idx), None)
+        self._committed_bundles[(pg_id, idx)] = req
+        amounts = {name: _quantize(v) for name, v in
+                   bundle_resource_names(pg_id, idx, req).items()}
+        self._update_local(amounts, 1)
+        self.cluster_task_manager.on_cluster_changed()
+
+    def cancel_resource_reserve(self, pg_id, idx: int) -> None:
+        """Roll back a prepared bundle, or return a committed one: its
+        formatted resources leave the node and its base resources come
+        back."""
+        req = self._prepared_bundles.pop((pg_id, idx), None)
+        if req is not None:
+            self.cluster_view.add_back(self.node_id, req)
+            return
+        req = self._committed_bundles.pop((pg_id, idx), None)
+        if req is None:
+            return
+        amounts = {name: _quantize(v) for name, v in
+                   bundle_resource_names(pg_id, idx, req).items()}
+        self._update_local(amounts, -1, release=req)
+        self.cluster_task_manager.on_cluster_changed()
+
+    def _update_local(self, amounts: Dict[str, int], sign: int,
+                      release: Optional[ResourceRequest] = None) -> None:
+        """Add (``sign`` 1) or take away (-1, never below 0; a name
+        whose total reaches 0 leaves the node) ``amounts`` on this node's
+        ledger, then ``release`` its request, and rebuild the view's
+        local row.  The dictionaries are replaced, never resized in
+        place: the broadcast thread reads them."""
+        res = self.local_resources
+        with self.cluster_view.lock:
+            total, avail = dict(res.total), dict(res.available)
+            for name, q in amounts.items():
+                total[name] = max(0, total.get(name, 0) + sign * q)
+                avail[name] = max(0, avail.get(name, 0) + sign * q)
+                if total[name] == 0:
+                    del total[name]
+                    avail.pop(name, None)
+            res.total, res.available = total, avail
+            if release is not None:
+                res.release(release)
+            self.cluster_view.update_node(self.node_id, res)
 
     # ---- lifecycle ------------------------------------------------------
     def shutdown(self):

@@ -25,8 +25,9 @@
 //   * Fixed node ownership.  Block k owns node ids [k N/8, (k+1) N/8) in
 //     id order for the whole call; its rows of availability and total
 //     (R_pad x 1,264 float32 each at the bench shape) sit in its shared
-//     memory from the first class to the last, and availability goes back
-//     to device memory once, at the end.  So no class step touches device
+//     memory from the first class to the last (on the shared route,
+//     below), and availability goes back to device memory once, at the
+//     end.  So no class step touches device
 //     memory except to read its cost row (prefetched into registers
 //     during the previous class's barrier) and write its allocs row.
 //   * Analytic rotation.  For shift s, the rotated order is the nodes
@@ -56,6 +57,19 @@
 //   * Resource loops.  The solvers pad up to 8 resources to R_pad = 8,
 //     and an instance for R_pad = 8 fixes the loops over resources at
 //     compile time, so that they unroll; another takes any R_pad.
+//   * Two routes for the rows.  While a block's 2 x R_pad x ceil(N_pad / 8)
+//     floats of availability and totals (and the class's demand row)
+//     fit kSmemBudget bytes of shared memory, they live there, as above
+//     ("shared").  Past it ("global": a wide R_pad, such as a view that
+//     placement-group bundles have widened by hundreds of formatted
+//     resource columns, at many nodes) the kernel water-fills in place
+//     in av_out, which it first fills from av0, reads totals and demand
+//     from device memory, and keeps only the per-node flags in shared
+//     memory.  Each node is read and written by one thread only, so the
+//     route needs no more synchronisation than the shared one; a class
+//     step touches only the rows its class demands (all rows when it
+//     demands none), which stay in L2 from step to step.  The arithmetic
+//     is the same in both routes.
 //
 // Bit-equality with the plain PyTorch version: every cap is an integer
 // (float32), and while a class's caps sum below 2^24 every partial sum
@@ -65,10 +79,8 @@
 // Built without FMA contraction (-fmad=false) and without fast math, so
 // cap, score and bucket round as in PyTorch.
 //
-// Limits: R_pad <= 64, ceil(N_pad / 8) <= 4096 nodes a block, and each
-// block's 2 x R_pad x ceil(N_pad / 8) floats within kSmemBudget bytes of
-// shared memory (R_pad = 8: N_pad up to about 26,000); the wrapper raises
-// beyond them.
+// Limits: ceil(N_pad / 8) <= 4096 nodes a block (N_pad up to 32,768);
+// any R_pad.  The wrapper raises beyond them.
 //
 // Plain C entry point, bound with ctypes; returns cudaGetLastError().
 
@@ -87,7 +99,6 @@ constexpr int kCluster = 8;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRounds = 4;
-constexpr int kMaxR = 64;
 constexpr int kUtilLevels = 16;
 constexpr int kCostBuckets = 16;
 constexpr int kBuckets = kCostBuckets + kUtilLevels + 3;   // 35
@@ -110,15 +121,23 @@ __host__ __device__ __forceinline__ int nodes_per_block(int n_pad) {
   return (n_pad + kCluster - 1) / kCluster;
 }
 
-__host__ __device__ __forceinline__ int node_bytes(int n_pad, int r_pad) {
-  const int nk = nodes_per_block(n_pad);
-  return 2 * r_pad * nk * (int)sizeof(float) + ((nk + 15) & ~15);
+__host__ __device__ __forceinline__ long long flag_bytes(int n_pad) {
+  return (nodes_per_block(n_pad) + 15) & ~15;
+}
+
+// Dynamic shared memory of a block on the shared route: availability and
+// totals of its nodes, the demand rows of two classes, the node flags.
+__host__ __device__ __forceinline__ long long shared_route_bytes(int n_pad,
+                                                                 int r_pad) {
+  const long long nk = nodes_per_block(n_pad);
+  return (2 * (long long)r_pad * nk + 2 * (long long)r_pad) *
+             (long long)sizeof(float) + flag_bytes(n_pad);
 }
 
 // RP > 0: R_pad fixed at compile time, so the loops over resources
 // unroll; the solvers pad up to 8 resources to R_pad = 8, which takes that
-// instance.  RP = 0: any R_pad.
-template <int RP>
+// instance.  RP = 0: any R_pad.  GLOBAL: the global route (header).
+template <int RP, bool GLOBAL>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 class_fill_kernel(const float* __restrict__ av0,
                   const float* __restrict__ total,
@@ -140,8 +159,7 @@ class_fill_kernel(const float* __restrict__ av0,
   // Every block's 70 key totals, written by that block, by class parity.
   __shared__ float slots[2][kCluster][kKeys];
   __shared__ float goff[kKeys];        // this block's offset of each key
-  __shared__ float dem_s[2][kMaxR];    // class parameters, by parity
-  __shared__ float cnt_s[2];
+  __shared__ float cnt_s[2];           // class parameters, by parity
   __shared__ int accel_s[2];
   __shared__ int shift_s[2];
 
@@ -154,17 +172,23 @@ class_fill_kernel(const float* __restrict__ av0,
   const int n0 = (int)((long long)rank * n_pad / kCluster);
   const int nk = (int)((long long)(rank + 1) * n_pad / kCluster) - n0;
   const int rounds = (nk_max + kThreads - 1) / kThreads;
-  float* av_s = dyn;                                  // [r_pad][nk_max]
-  float* tot_s = dyn + r_pad * nk_max;                // [r_pad][nk_max]
-  uint8_t* flag_s = reinterpret_cast<uint8_t*>(tot_s + r_pad * nk_max);
+  // Row r of node i (a local index) is av_w[r * rs + i] and
+  // tot_r[r * rs + i]: in shared memory, or in place in av_out and total.
+  const size_t shared_rows = GLOBAL ? 0 : (size_t)r_pad * nk_max;
+  float* av_w = GLOBAL ? av_out + n0 : dyn;
+  const float* tot_r = GLOBAL ? total + n0 : dyn + shared_rows;
+  const size_t rs = GLOBAL ? (size_t)n_pad : (size_t)nk_max;
+  float* dem_s = dyn + 2 * shared_rows;               // [2][r_pad], shared
+  uint8_t* flag_s = reinterpret_cast<uint8_t*>(
+      dem_s + (GLOBAL ? 0 : 2 * r_pad));
 
   for (int i = t; i < nk; i += kThreads) {
     float tot_max = -CUDART_INF_F;
     for (int r = 0; r < r_pad; ++r) {
       const size_t g = (size_t)r * n_pad + n0 + i;
       const float tt = total[g];
-      av_s[r * nk_max + i] = av0[g];
-      tot_s[r * nk_max + i] = tt;
+      av_w[r * rs + i] = av0[g];
+      if (!GLOBAL) dyn[shared_rows + r * rs + i] = tt;
       tot_max = fmaxf(tot_max, tt);
     }
     flag_s[i] = (accel_node[n0 + i] ? kAccelNode : 0) |
@@ -183,7 +207,7 @@ class_fill_kernel(const float* __restrict__ av0,
     cst[j] = (j < rounds && i < nk && c_pad > 0) ? cost[n0 + i] : 0.0f;
   }
   if (c_pad > 0) {
-    if (t < r_pad) dem_s[0][t] = demand[t];
+    if (!GLOBAL && t < r_pad) dem_s[t] = demand[t];
     if (t == kThreads - 1) {
       cnt_s[0] = counts[0];
       accel_s[0] = accel_class[0];
@@ -200,7 +224,8 @@ class_fill_kernel(const float* __restrict__ av0,
     // The next class's parameters, on their way during this class.
     float d_next = 0.0f, cnt_next = 0.0f;
     int accel_next = 0, shift_next = 0;
-    if (more && t < r_pad) d_next = demand[(size_t)(c + 1) * r_pad + t];
+    if (!GLOBAL && more && t < r_pad)
+      d_next = demand[(size_t)(c + 1) * r_pad + t];
     if (more && t == kThreads - 1) {
       cnt_next = counts[c + 1];
       accel_next = accel_class[c + 1];
@@ -209,7 +234,8 @@ class_fill_kernel(const float* __restrict__ av0,
     const float cnt = cnt_s[par];
     const bool is_accel = accel_s[par] != 0;
     const int shift = shift_s[par];
-    const float* dem = dem_s[par];
+    const float* dem =
+        GLOBAL ? demand + (size_t)c * r_pad : dem_s + par * r_pad;
     bool any_demand = false, all_demand = true;
     for (int r = 0; r < r_pad; ++r) {
       any_demand |= dem[r] > 0.0f;
@@ -241,14 +267,14 @@ class_fill_kernel(const float* __restrict__ av0,
         for (int r = 0; r < r_pad; ++r) {
           const float d = dem[r];
           if (d > 0.0f) {
-            const float a = av_s[r * nk_max + i];
-            const float tt = tot_s[r * nk_max + i];
+            const float a = av_w[r * rs + i];
+            const float tt = tot_r[r * rs + i];
             ratio_min = fminf(ratio_min, a / fmaxf(d, kEps));
             s_dem = fmaxf(s_dem,
                           tt > 0.0f ? (tt - a) / fmaxf(tt, kEps) : 0.0f);
           } else if (!any_demand) {
-            const float a = av_s[r * nk_max + i];
-            const float tt = tot_s[r * nk_max + i];
+            const float a = av_w[r * rs + i];
+            const float tt = tot_r[r * rs + i];
             s_all = fmaxf(s_all,
                           tt > 0.0f ? (tt - a) / fmaxf(tt, kEps) : 0.0f);
           }
@@ -327,7 +353,7 @@ class_fill_kernel(const float* __restrict__ av0,
       }
     }
     if (more) {
-      if (t < r_pad) dem_s[par ^ 1][t] = d_next;
+      if (!GLOBAL && t < r_pad) dem_s[(par ^ 1) * r_pad + t] = d_next;
       if (t == kThreads - 1) {
         cnt_s[par ^ 1] = cnt_next;
         accel_s[par ^ 1] = accel_next;
@@ -392,15 +418,16 @@ class_fill_kernel(const float* __restrict__ av0,
       if (take != 0.0f) {
         for (int r = 0; r < r_pad; ++r)
           if (dem[r] != 0.0f)
-            av_s[r * nk_max + i] = av_s[r * nk_max + i] - take * dem[r];
+            av_w[r * rs + i] = av_w[r * rs + i] - take * dem[r];
       }
     }
   }
 
+  if (GLOBAL) return;   // av_out already holds the result
   __syncthreads();
   for (int i = t; i < nk; i += kThreads)
     for (int r = 0; r < r_pad; ++r)
-      av_out[(size_t)r * n_pad + n0 + i] = av_s[r * nk_max + i];
+      av_out[(size_t)r * n_pad + n0 + i] = av_w[r * rs + i];
 }
 
 // One cluster of the fill kernel's shape that only crosses `iters`
@@ -426,13 +453,18 @@ extern "C" int class_fill_launch(const void* av0, const void* total,
                                  const void* accel_node, const void* shifts,
                                  const void* cost, const void* scalars,
                                  void* av_out, void* allocs, int c_pad,
-                                 int n_pad, int r_pad, void* stream) {
-  if (r_pad < 1 || r_pad > kMaxR || n_pad < 1 || c_pad < 0 ||
+                                 int n_pad, int r_pad, int global_route,
+                                 void* stream) {
+  if (r_pad < 1 || n_pad < 1 || c_pad < 0 ||
       nodes_per_block(n_pad) > kMaxRounds * kThreads ||
-      node_bytes(n_pad, r_pad) > kSmemBudget)
+      (!global_route && (r_pad > kThreads ||
+                         shared_route_bytes(n_pad, r_pad) > kSmemBudget)))
     return (int)cudaErrorInvalidValue;
-  const int smem = node_bytes(n_pad, r_pad);
-  auto kernel = r_pad == 8 ? class_fill_kernel<8> : class_fill_kernel<0>;
+  const int smem = (int)(global_route ? flag_bytes(n_pad)
+                                      : shared_route_bytes(n_pad, r_pad));
+  auto kernel = global_route ? class_fill_kernel<0, true>
+                : r_pad == 8 ? class_fill_kernel<8, false>
+                             : class_fill_kernel<0, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

@@ -20,9 +20,12 @@ thread-block cluster of 8 SMs that own fixed eighths of the nodes, keep
 their availability in shared memory for the whole call, and exchange
 per-bucket totals through distributed shared memory behind one cluster
 barrier per class; the rotation of the fill order is analytic (the
-source note has the design).  It takes R_pad <= 64 and
-R_pad * ceil(N_pad / 8) up to the shared memory it has (R_pad = 8: N_pad
-up to about 26,000), and raises beyond.
+source note has the design).  Where a block's rows do not fit its shared
+memory (a view widened by placement-group bundles to hundreds of
+resource columns, at thousands of nodes), the kernel takes its global
+route: the same arithmetic, water-filled in place in device memory
+(``kernel_route``).  It takes any R_pad and N_pad up to 32,768, and
+raises beyond.
 
 ``class_fill_reference`` is the plain loop of ``_bucket_fill_step``
 over classes.  ``class_fill`` takes it only for tensors on the CPU.
@@ -152,21 +155,31 @@ def _check(av_t, total_t, demand, counts, accel_class, accel_node, cost,
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"class_fill: {name} must be contiguous")
-    if r_pad > 64:
-        raise ValueError(f"class_fill: at most 64 resource rows, got {r_pad}")
 
 
 # Shape limits of the CUDA kernel (csrc/class_fill.cu): nodes a block of
-# the 8-block cluster owns, and the shared memory those nodes' rows take.
+# the 8-block cluster owns, the threads of a block, and the shared memory
+# a block's rows may take.
 _CLUSTER = 8
 _MAX_NODES_PER_BLOCK = 4 * 1024
+_THREADS = 1024
 _SMEM_BUDGET = 212 * 1024
 
 
-def _kernel_fits(n_pad: int, r_pad: int) -> bool:
+def kernel_route(n_pad: int, r_pad: int) -> str:
+    """The CUDA kernel's route at this shape: ``"shared"`` while a
+    block's availability and totals (2 x R_pad x ceil(N_pad / 8) floats),
+    two demand rows and the node flags fit its shared memory, else
+    ``"global"`` (in place in device memory).  Raises ``ValueError``
+    past the node limit."""
     nk = -(-n_pad // _CLUSTER)
-    return (nk <= _MAX_NODES_PER_BLOCK and
-            2 * r_pad * nk * 4 + (-(-nk // 16) * 16) <= _SMEM_BUDGET)
+    if nk > _MAX_NODES_PER_BLOCK:
+        raise ValueError(
+            f"class_fill: the CUDA kernel's 8 blocks own at most "
+            f"{_MAX_NODES_PER_BLOCK} nodes each; N_pad={n_pad} is past that")
+    shared = (2 * r_pad * nk + 2 * r_pad) * 4 + (-(-nk // 16) * 16)
+    return ("shared" if r_pad <= _THREADS and shared <= _SMEM_BUDGET
+            else "global")
 
 
 def _scalar(x, dev):
@@ -180,17 +193,11 @@ def _launch(av_t, total_t, demand, counts, accel_class, accel_node,
             spread_threshold, cost, invert, shifts):
     r_pad, n_pad = av_t.shape
     c_pad = demand.shape[0]
-    if not _kernel_fits(n_pad, r_pad):
-        raise ValueError(
-            f"class_fill: the CUDA kernel keeps each eighth of the nodes' "
-            f"availability and totals in one SM's shared memory; R_pad="
-            f"{r_pad} x ceil(N_pad={n_pad} / 8) does not fit "
-            f"({_SMEM_BUDGET} bytes, at most {_MAX_NODES_PER_BLOCK} nodes "
-            "a block)")
+    global_route = kernel_route(n_pad, r_pad) == "global"
     from ray_tpu_torch.ops import _build
     lib = _build.load("class_fill.cu")
     fn = lib.class_fill_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dev = av_t.device
@@ -204,7 +211,7 @@ def _launch(av_t, total_t, demand, counts, accel_class, accel_node,
                  counts.data_ptr(), accel_class.data_ptr(),
                  accel_node.data_ptr(), shifts.data_ptr(), cost.data_ptr(),
                  scalars.data_ptr(), av_out.data_ptr(), allocs.data_ptr(),
-                 c_pad, n_pad, r_pad, stream)
+                 c_pad, n_pad, r_pad, int(global_route), stream)
     if err != 0:
         raise RuntimeError(f"class_fill kernel launch failed: CUDA error "
                            f"{err}")
@@ -226,9 +233,9 @@ def class_fill(av_t, total_t, demand, counts, accel_class, accel_node,
     0-d float32 tensors.  Returns (av_after [R, N], allocs [C, N]).
 
     On a CUDA tensor this launches the Hopper kernel (and raises if it
-    cannot, or if the shape is past its limits: R_pad <= 64 and each
-    eighth of the nodes' rows within one SM's shared memory); on a CPU
-    tensor it runs ``class_fill_reference``."""
+    cannot, or past its node limit, N_pad 32,768), on the route
+    ``kernel_route`` names; on a CPU tensor it runs
+    ``class_fill_reference``, at any shape."""
     _check(av_t, total_t, demand, counts, accel_class, accel_node, cost,
            shifts)
     if av_t.device.type == "cpu":

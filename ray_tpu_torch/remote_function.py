@@ -8,9 +8,9 @@ function; ``_remote`` (:246) exports the function, builds the task spec
 
 Options: ``num_cpus``, ``num_gpus``, ``memory``, ``resources``,
 ``num_returns``, ``max_retries``, ``retry_exceptions``,
-``scheduling_strategy`` and ``name``.  A placement-group strategy raises
-``NotImplementedError`` until the bundle two-phase commit is ported
-(ROADMAP A.4b.3); a ``runtime_env`` raises at submit.
+``scheduling_strategy`` and ``name``.  A placement-group strategy
+rewrites the task's resources to the bundle's formatted ones
+(``resolve_pg_strategy``); a ``runtime_env`` raises at submit.
 """
 
 from __future__ import annotations
@@ -43,14 +43,21 @@ def _resource_dict(o: Dict[str, Any]) -> Dict[str, float]:
     return res
 
 
-def _check_strategy(strategy) -> None:
+def resolve_pg_strategy(options: Dict[str, Any], resources: Dict[str, float]):
+    """Rewrite resources for placement-group scheduling (bundle_spec.h
+    formatted resources).  Returns (resources, strategy, placement group
+    id or None, bundle index)."""
     from ray_tpu_torch.util.scheduling_strategies import \
         PlacementGroupSchedulingStrategy
-    if isinstance(strategy, PlacementGroupSchedulingStrategy):
-        raise NotImplementedError(
-            "PlacementGroupSchedulingStrategy: placement groups need the "
-            "raylet's bundle two-phase commit, which is not ported yet "
-            "(ROADMAP A.4b.3)")
+    strategy = options.get("scheduling_strategy")
+    if not isinstance(strategy, PlacementGroupSchedulingStrategy):
+        return resources, strategy, None, -1
+    from ray_tpu_torch.scheduler.bundle_packing import \
+        rewrite_resources_for_bundle
+    pg = strategy.placement_group
+    idx = strategy.placement_group_bundle_index
+    rewritten = rewrite_resources_for_bundle(resources, pg.id, idx)
+    return rewritten, "DEFAULT", pg.id, idx
 
 
 class RemoteFunction:
@@ -89,8 +96,8 @@ class RemoteFunction:
                     "cluster was shut down).")
             worker_mod.init()
         core = w.core_worker
-        strategy = options.get("scheduling_strategy")
-        _check_strategy(strategy)
+        resources, strategy, pg_id, bundle_idx = resolve_pg_strategy(
+            options, _resource_dict(options))
         # Export every call: the FunctionManager dedupes per cluster, and a
         # RemoteFunction defined at module scope outlives init/shutdown
         # cycles (a cached id would dangle into the new cluster's table).
@@ -106,7 +113,7 @@ class RemoteFunction:
             function_name=options.get("name") or self._name,
             args=task_args,
             num_returns=options.get("num_returns", 1),
-            resources=_resource_dict(options),
+            resources=resources,
             scheduling_strategy=strategy,
             parent_task_id=parent.task_id if parent else core.driver_task_id,
             depth=(parent.depth + 1) if parent else 0,
@@ -114,6 +121,8 @@ class RemoteFunction:
             max_retries=(cfg_retries if cfg_retries is not None
                          else get_config().task_max_retries),
             retry_exceptions=bool(options.get("retry_exceptions")),
+            placement_group_id=pg_id,
+            placement_group_bundle_index=bundle_idx,
             runtime_env=options.get("runtime_env") or None,
             borrowed_ids=borrowed,
         )

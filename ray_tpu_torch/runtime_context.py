@@ -2,9 +2,8 @@
 
 A port of the task half of ``ray_tpu.runtime_context`` for the PyTorch
 port (reference ``python/ray/runtime_context.py``): job, node and task
-ids and the assigned resources, from the driver or inside a task.  The
-actor and placement-group accessors come with their items (ROADMAP
-A.4b).
+ids, the assigned resources and the placement group, from the driver or
+inside a task.  The actor accessors come with actors (ROADMAP A.4b.5).
 """
 
 from __future__ import annotations
@@ -49,6 +48,12 @@ class RuntimeContext:
         if spec is None:
             return {}
         return spec.resources.to_dict()
+
+    def get_placement_group_id(self) -> Optional[str]:
+        spec = worker_context.current_task_spec()
+        if spec is None or spec.placement_group_id is None:
+            return None
+        return spec.placement_group_id.hex()
 
 
 _context = RuntimeContext()

@@ -199,6 +199,12 @@ class ClusterResourceView:
     def columns(self) -> Dict[str, int]:
         return self._columns
 
+    @property
+    def lock(self) -> threading.RLock:
+        """The view's lock, for a holder that changes a row's ledger and
+        rebuilds the row as one step (the raylet's bundle commit)."""
+        return self._lock
+
     # ---- node membership ------------------------------------------------
     @staticmethod
     def _snapshot(resources: NodeResources):
@@ -386,13 +392,19 @@ class ClusterResourceView:
             return len(self._columns)
 
     def demand_matrix(self, requests: List[ResourceRequest]) -> np.ndarray:
-        """Pack demands into [C, R] aligned with this view's columns."""
+        """Pack demands into [C, R] aligned with this view's columns,
+        after adding a column for each name the view lacks (ROADMAP C.10:
+        the reference sizes the matrix before it adds them, and raises
+        ``IndexError`` on a new name)."""
         with self._lock:
+            for req in requests:
+                for name in req.names():
+                    self._column(name)
             mat = np.zeros((len(requests), len(self._columns)),
                            dtype=np.float32)
             for i, req in enumerate(requests):
                 for name, v in req.quantized().items():
-                    mat[i, self._column(name)] = v / FP_SCALE
+                    mat[i, self._columns[name]] = v / FP_SCALE
             return mat
 
     # ---- queries --------------------------------------------------------

@@ -850,6 +850,12 @@ class DeviceRuntimeSolver:
                 local_node_id=None)
         return targets
 
+    def pads(self) -> Optional[Tuple[int, int]]:
+        """(N_pad, R_pad) of the device-resident world state, None
+        before the first sync."""
+        st = self._state
+        return None if st is None else (st["n_pad"], st["r_pad"])
+
     # -- internals -------------------------------------------------------
     def _solve_groups(self, view, specs, groups, targets) -> bool:
         self.stats["ticks"] += 1

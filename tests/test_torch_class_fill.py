@@ -110,6 +110,44 @@ def test_plain_fill_matches_jax_at_two_node_groups(zero_shifts):
     np.testing.assert_allclose(av.numpy(), np.asarray(av_j), atol=1e-4)
 
 
+def _sparse_demand(demand, R, per_class=3, seed=9):
+    """``demand`` with ``per_class`` of its first ``R`` columns kept a
+    class (the rest 0), as a task names a few of a wide view's columns."""
+    rng = np.random.default_rng(seed)
+    keep = np.zeros(demand.shape, bool)
+    for c in range(demand.shape[0]):
+        keep[c, rng.choice(R, per_class, replace=False)] = True
+    return np.where(keep, demand, 0).astype(demand.dtype)
+
+
+@pytest.mark.parametrize("R,r_pad", [(70, 72), (130, 136)])
+def test_plain_fill_matches_jax_at_wide_resource_pads(R, r_pad):
+    """A view that placement-group bundles have widened past 64 columns
+    (each group of four bundles adds ten): the plain version takes any
+    R_pad, as the JAX package's scan and Pallas kernel do.  Availability
+    is exact here (integers)."""
+    p = _problem(4, C=16, N=100, R=R, with_cost=True, r_pad=r_pad)
+    p["demand"] = _sparse_demand(p["demand"], R)
+    av, alloc = _port_fill(p, 0.5, 0.0)
+    (av_j, alloc_j), (av_p, alloc_p) = _jax_fills(p, 0.5, 0.0)
+    assert alloc.sum() > 0
+    np.testing.assert_array_equal(alloc.numpy(), np.asarray(alloc_j))
+    np.testing.assert_array_equal(alloc.numpy(), np.asarray(alloc_p))
+    np.testing.assert_array_equal(av.numpy(), np.asarray(av_j))
+
+
+@pytest.mark.parametrize("n_pad,r_pad,route", [
+    (128, 8, "shared"), (128, 240, "shared"), (10_112, 16, "shared"),
+    (10_112, 24, "global"), (10_112, 136, "global"), (128, 2048, "global"),
+    (32_768, 8, "global")])
+def test_kernel_route_by_shape(n_pad, r_pad, route):
+    """The rows stay in shared memory while a block's share fits, and
+    go to the global route past it; only the node limit raises."""
+    assert cf.kernel_route(n_pad, r_pad) == route
+    with pytest.raises(ValueError, match="at most 4096 nodes"):
+        cf.kernel_route(32_769, r_pad)
+
+
 def test_cpu_tensor_never_touches_the_build(monkeypatch):
     from ray_tpu_torch.ops import _build
 
@@ -138,12 +176,13 @@ def test_wrapper_rejects_bad_inputs(field, bad):
                       torch.from_numpy(p["shifts"]))
 
 
-def _raw_problem(seed, C=16, n_pad=203, R=5, r_pad=8, shifts=None):
+def _raw_problem(seed, C=16, n_pad=203, R=5, r_pad=8, shifts=None,
+                 sparse=False):
     """class_fill's arguments at any N_pad (no padding of the node axis),
     with the kernel's edge cases: empty nodes, accelerator nodes and
     classes, a class that demands nothing (class 1), a cost term, and
     the given shifts (default: 0, block boundaries, N_pad - 1, inside a
-    block, then random)."""
+    block, then random).  ``sparse``: each class demands 3 columns."""
     rng = np.random.default_rng(seed)
     avail = np.floor(rng.uniform(0, 8, (n_pad, R)))
     total = avail + np.floor(rng.uniform(0, 4, (n_pad, R)))
@@ -151,6 +190,8 @@ def _raw_problem(seed, C=16, n_pad=203, R=5, r_pad=8, shifts=None):
     avail[empty] = 0.0
     total[empty] = 0.0
     demand = np.floor(rng.uniform(0, 2.2, (C, R)))
+    if sparse:
+        demand = _sparse_demand(demand, R, seed=seed)
     demand[1] = 0.0
     counts = rng.integers(0, 60, C).astype(np.float64)
     counts[1] = 25.0
@@ -309,9 +350,33 @@ def test_kernel_at_other_resource_pads_on_card(cuda_device, R, r_pad):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("R,r_pad,n_pad", [
+    (70, 72, 203), (130, 136, 1003), (230, 240, 128), (20, 24, 10_112),
+    (70, 72, 10_112), (130, 136, 10_112)])
+def test_kernel_at_wide_resource_pads_on_card(cuda_device, R, r_pad, n_pad):
+    """Past 64 resource rows, on the shared route while a block's rows
+    fit and on the global route past the shared-memory budget (N_pad
+    10,112 from R_pad 24): bit-equal to the plain version."""
+    args = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+            for a in _raw_problem(5, C=24, n_pad=n_pad, R=R, r_pad=r_pad,
+                                  sparse=True)]
+    before = cf.class_fill.launches
+    av_k, alloc_k = cf.class_fill(*args)
+    torch.cuda.synchronize()
+    assert cf.class_fill.launches == before + 1
+    av_r, alloc_r = cf.class_fill_reference(*args)
+    assert alloc_r[2:].sum() > 0   # class 1 demands nothing
+    assert torch.equal(alloc_k, alloc_r)
+    assert torch.equal(av_k, av_r)
+
+
+@pytest.mark.gpu
 def test_kernel_raises_past_its_shared_memory(cuda_device):
+    """Rows past the shared memory take the global route; what still
+    raises is a block's share of nodes past its 4 rounds of 1024
+    threads."""
     args = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a
             for a in _raw_problem(0, C=2, n_pad=64 * 1024, R=8, r_pad=8,
                                   shifts=[0, 1])]
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="at most 4096 nodes"):
         cf.class_fill(*args)

@@ -523,10 +523,12 @@ def test_wait_with_controlled_completion_matches_jax():
 
 def test_stand_ins_raise_not_implemented():
     """What the port does not have yet raises, naming its item: the
-    native shared-memory object store (A.4b.2b), a placement-group
-    strategy (A.4b.3), a runtime env, an actor class, process
-    workers."""
+    native shared-memory object store (A.4b.2b), a runtime env, an actor
+    class, process workers.  A placement-group strategy, a stand-in
+    until placement groups were ported (A.4b.3), now runs its task in
+    the group's bundle."""
     from ray_tpu_torch._private.config import initialize_config
+    from ray_tpu_torch.util import placement_group
     from ray_tpu_torch.util.scheduling_strategies import \
         PlacementGroupSchedulingStrategy
     try:
@@ -540,9 +542,11 @@ def test_stand_ins_raise_not_implemented():
     try:
         big = np.zeros(200 * 1024, np.uint8)
         f = ray_tpu_torch.remote(_identity)
-        pg = PlacementGroupSchedulingStrategy(object())
-        with pytest.raises(NotImplementedError, match="A.4b.3"):
-            f.options(scheduling_strategy=pg).remote(1)
+        group = placement_group([{"CPU": 1}])
+        assert group.wait(10)
+        pg = PlacementGroupSchedulingStrategy(group, 0)
+        assert ray_tpu_torch.get(
+            f.options(scheduling_strategy=pg).remote(1), timeout=10) == 1
         with pytest.raises(NotImplementedError, match="runtime_env"):
             f.options(runtime_env={"env_vars": {"A": "1"}}).remote(1)
         with pytest.raises(NotImplementedError, match="actors"):

@@ -605,6 +605,32 @@ def test_update_resource_usage_matches_jax(tick_knobs, stubs):
     assert len(want[0]) == 8
 
 
+def test_demand_for_a_new_resource_widens_the_view():
+    """ROADMAP C.10: a demand naming a resource the view has no column
+    for (a task for a node type the autoscaler has not launched yet)
+    adds the column and packs the demand; the reference raises
+    ``IndexError`` there, which its tick turns into a greedy pass and
+    the port's into a device error."""
+    from ray_tpu.scheduler import resources as jres
+    from ray_tpu_torch.scheduler import resources as tres
+    got = {}
+    for name, res in (("ray_tpu", jres), ("ray_tpu_torch", tres)):
+        view = res.ClusterResourceView()
+        view.add_node(b"n" * 16, res.NodeResources({"CPU": 2}))
+        reqs = [res.ResourceRequest({"CPU": 1}),
+                res.ResourceRequest({"bigmem": 0.5, "CPU": 0.25})]
+        try:
+            got[name] = (view.demand_matrix(reqs).tolist(),
+                         dict(view.columns))
+        except IndexError as e:
+            got[name] = ("IndexError", str(e))
+    assert got["ray_tpu"][0] == "IndexError"
+    mat, columns = got["ray_tpu_torch"]
+    assert columns["bigmem"] == len(columns) - 1
+    assert mat[1][columns["bigmem"]] == 0.5 and mat[1][columns["CPU"]] == 0.25
+    assert mat[0][columns["CPU"]] == 1.0 and sum(mat[0]) == 1.0
+
+
 def test_raylet_report_and_update_on_a_real_raylet(monkeypatch):
     monkeypatch.setattr(port_config(), "event_loop_tick_ms", 10)
     r = traylet.Raylet(None, {"CPU": 4, "memory": 8}, device="cpu",

@@ -97,6 +97,7 @@ class PortStubRaylet:
     request_worker_lease_batch = traylet.Raylet.request_worker_lease_batch
     return_worker = traylet.Raylet.return_worker
     update_resource_usage = traylet.Raylet.update_resource_usage
+    _same_totals = traylet.Raylet._same_totals
 
     def __init__(self, node_id: bytes, view, device="cpu"):
         self.node_id = tids.NodeID(node_id)
@@ -109,6 +110,7 @@ class PortStubRaylet:
         self.device = torch.device(device)
         self.lease_stats = _lease_stats()
         self._dead = False
+        self._peer_totals = {}
         self.loop = tloop.EventLoop(f"raylet-{self.node_id.hex()[:6]}")
         self.worker_pool = twp.WorkerPool(self)
         self.local_task_manager = tltm.LocalTaskManager(self)
