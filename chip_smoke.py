@@ -38,7 +38,7 @@ mode (``ray_tpu_torch._private``, ``ray_tpu_torch.autoscaler``):
       fleet's three node kinds and an 8-bundle STRICT_SPREAD group:
       outputs equal to ``device="cpu"``'s, ms per call and the device
       time of one more call of each (``torch.profiler``);
-  R3. a ``LocalCluster`` of 64 raylets on the card (the fleet's first 64
+  R3. a ``Cluster`` of 64 raylets on the card (the fleet's first 64
       node shapes) and ``R3_LEASES`` leases (20,000 of the configuration's
       100,000, to keep the run's wall) from a lessee with the reference
       submitter's protocol, each spillback re-sent with
@@ -64,6 +64,14 @@ tick running ``class_fill``:
       task returns its index, read once; tasks/s, the wall, p50/p99 from
       submit to a sealed result, launches and batched ticks a raylet,
       spillbacks and rejections, the peak count of worker threads;
+  E1. C2's task events, read from the GCS's ``TaskEventManager``: no
+      event dropped at the source, the records tracked plus those evicted
+      equal to the tasks submitted, every tracked record FINISHED after
+      PENDING_ARGS_AVAIL, SCHEDULED, SUBMITTED_TO_WORKER and RUNNING in
+      order with time stamps that never go down; a raylet's SCHEDULED
+      for a lease granted after its task ran elsewhere and its record was
+      evicted (a late grant, as in the reference) counted apart; the
+      stage p50 and p99;
 
 the object plane through ``ray_tpu_torch.init()`` on the card
 (``ray_tpu_torch.tools.profile_objects``; the launch count zeroed before
@@ -129,6 +137,27 @@ each phase and read after it):
       ``min_workers`` once idle: ms per ``update_all``, launches, nodes
       launched and terminated, seconds from the burst to the last
       result;
+
+node death by missed heartbeats and a GCS restart on R3's 64 raylets
+under ``init`` (``ray_tpu_torch.tools.profile_gcs``; the launch count
+zeroed before each phase and read after it):
+
+  H1. four STRICT_SPREAD groups of four ``{"CPU": 1}`` bundles, 64 tasks
+      returning 8 MiB arrays the driver holds unread, then a burst of
+      20,000 no-op tasks in R3's classes and, a quarter into it,
+      ``kill_node`` of 8 raylets: each victim SUSPECT then DEAD within
+      ``num_heartbeats_timeout`` periods plus two of its kill (ms to each
+      printed), no batched tick's device placement on a node masked when
+      it started, every result right through retries, every array
+      byte-equal (the lost ones recomputed), every group that lost a
+      bundle CREATED again on live nodes, no survivor error, and
+      ``class_fill`` launches equal to the raylets' batched ticks;
+  H2. G1's 17 groups on a GCS journaled to a file, one group's table
+      row deleted, ``restart_gcs``: every other group CREATED on the
+      same bundle nodes, the deleted group's bundles released, 1,000
+      tasks into bundles right, their leases through the batched ticks;
+      the restart's ms (shutdown, reload, reconcile) and the journal's
+      bytes;
 
 and the transformer's forward pass (``Transformer``) at the width of
 ``bench_model.py``'s single-chip model (vocab 32,000, d_model 1024, 16
@@ -914,6 +943,15 @@ def phase_tasks_cluster(cf):
             out["launches"] != sum(out["batched_ticks"].values()):
         raise AssertionError(f"C2: class_fill launched {out['launches']} "
                              f"times, batched ticks {out['batched_ticks']}")
+    ev = out["events"]
+    stages = "; ".join(f"{k} p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} "
+                       f"ms ({v['count']})" for k, v in ev["stages"].items())
+    log(f"[E1] task events of C2: {ev['tracked']} records tracked + "
+        f"{ev['evicted']} evicted = {ev['tracked'] + ev['evicted']} tasks, "
+        f"{ev['dropped_at_source']} dropped at the source, every tracked "
+        f"record FINISHED with its lifecycle in order ({ev['stragglers']} "
+        f"with a straggling SCHEDULED after it); {ev['late_grants']} "
+        f"records opened by a late lease grant; stages: {stages}")
     log(f"[C2] {out['raylets']} raylets, {out['cpus']:.0f} CPUs: "
         f"{out['submitted']} of {out['tasks']} tasks submitted (cut: "
         f"{out['dropped_infeasible']} tasks, share "
@@ -927,6 +965,65 @@ def phase_tasks_cluster(cf):
         f"rejected at their target {out['spillback_rejections']}, "
         f"submitter {out['submitter']}; peak worker threads "
         f"{out['peak_workers']} (each raylet's peak, summed)")
+    return out
+
+
+def phase_heartbeat(cf):
+    """H1: ``profile_gcs.heartbeat_death`` on the card (module docstring);
+    its checks run inside, the launches are held to the batched ticks
+    here."""
+    from ray_tpu_torch.tools import profile_gcs as pgc
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    cf.class_fill.launches = 0
+    out = pgc.heartbeat_death("cuda")
+    out["launches"] = cf.class_fill.launches
+    check_no_threads("H1")
+    if out["launches"] < 1 or out["launches"] != out["batched_ticks"]:
+        raise AssertionError(f"H1: class_fill launched {out['launches']} "
+                             f"times for {out['batched_ticks']} batched "
+                             "ticks")
+    ms = lambda xs: ", ".join(f"{x:.0f}" for x in xs)  # noqa: E731
+    log(f"[H1] {out['raylets']} raylets, {out['victims']} killed a quarter "
+        f"into {out['tasks']} tasks: kill to SUSPECT "
+        f"[{ms(out['kill_to_suspect_ms'])}] ms, kill to DEAD "
+        f"[{ms(out['kill_to_dead_ms'])}] ms (bound {out['bound_ms']:.0f}); "
+        f"{out['masked_ticks']} device solves under a mask, "
+        f"{out['masked_placements']} device placements on a masked node; "
+        f"every result right; {out['arrays_lost']} of {out['arrays']} "
+        f"arrays lost and recomputed ({out['reconstructions']} "
+        f"reconstructions), all byte-equal, dead to last array "
+        f"{out['dead_to_arrays_ms']:.0f} ms; {out['groups_moved']} groups "
+        f"CREATED again on live nodes, dead to CREATED "
+        f"{out['dead_to_created_ms']:.0f} ms; {out['tasks_per_s']:.0f} "
+        f"tasks/s; class_fill launches {out['launches']} = batched ticks; "
+        f"GCS loop lag max {out['gcs_loop_lag_max_ms']:.1f} ms; submitter "
+        f"{out['submitter']}")
+    return out
+
+
+def phase_gcs_restart(cf):
+    """H2: ``profile_gcs.gcs_restart`` on the card (module docstring)."""
+    from ray_tpu_torch.tools import profile_gcs as pgc
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    cf.class_fill.launches = 0
+    out = pgc.gcs_restart("cuda")
+    out["launches"] = cf.class_fill.launches
+    check_no_threads("H2")
+    if out["launches"] < 1 or out["launches"] != out["batched_ticks"]:
+        raise AssertionError(f"H2: class_fill launched {out['launches']} "
+                             f"times for {out['batched_ticks']} batched "
+                             "ticks")
+    r = out["restart_ms"]
+    log(f"[H2] {out['groups_kept']} of {out['groups']} groups CREATED on "
+        f"their bundle nodes after restart_gcs, the deleted group's "
+        f"bundles released on its {out['leaked_group_nodes']} node(s); "
+        f"restart {out['restart_total_ms']:.1f} ms (shutdown "
+        f"{r['shutdown']:.1f}, reload {r['reload']:.1f}, reconcile "
+        f"{r['reconcile']:.1f}); journal {out['journal_bytes']} bytes; "
+        f"{out['tasks']} tasks into bundles right at "
+        f"{out['tasks_per_s']:.0f} tasks/s, {out['batched_ticks_after']} "
+        f"batched ticks after the restart; class_fill launches "
+        f"{out['launches']}")
     return out
 
 
@@ -1134,7 +1231,7 @@ def phase_autoscaler_loop(cf):
 
 def phase_cluster(torch, cf):
     """R3: ``profile_cluster.cluster_burst`` on the card: a burst of
-    ``R3_LEASES`` leases across a ``LocalCluster`` of 64 raylets from a
+    ``R3_LEASES`` leases across a ``Cluster`` of 64 raylets from a
     lessee with the reference submitter's protocol, each spillback re-sent
     at once with ``grant_or_reject``.  Every feasible lease granted exactly
     once, no raylet error, no solver fallback, one ``class_fill`` launch
@@ -1909,7 +2006,8 @@ def main() -> int:
                  "gcs.placement_group_manager", "util.placement_group",
                  "autoscaler.load_metrics", "autoscaler.node_provider",
                  "autoscaler.autoscaler", "autoscaler.monitor",
-                 "autoscaler.sdk", "tools.profile_groups"):
+                 "autoscaler.sdk", "tools.profile_groups", "gcs.server",
+                 "gcs.task_events", "gcs.job_graph", "tools.profile_gcs"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
@@ -1948,6 +2046,8 @@ def main() -> int:
     objects = phase_objects(cf)
     g1 = phase_groups(torch, cf, tb, sb)
     a1 = phase_autoscaler_loop(cf)
+    h1 = phase_heartbeat(cf)
+    h2 = phase_gcs_restart(cf)
     fb, fb128 = phase_flash_bwd(torch, fa, mb)
     t1 = phase_train_f32(torch, tt, fa, mb, mb.CONFIG, "train f32")
     t3f = phase_train_f32(torch, tt, fa, mb, mb.MOE_CONFIG, "moe train f32")
@@ -2001,7 +2101,8 @@ def main() -> int:
                      r2["launches"] + r3["launches"] + c1["launches"] +
                      c2["launches"] +
                      sum(o["launches"] for o in objects.values()) +
-                     g1["launches"] + a1["launches"]),
+                     g1["launches"] + a1["launches"] + h1["launches"] +
+                     h2["launches"]),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -2130,6 +2231,9 @@ def main() -> int:
                         "bundle_stats", "device_ms", "profiled_wall_ms",
                         "idle_share", "launches")},
                     "autoscaler_loop": a1,
+                    "task_events": c2["events"],
+                    "heartbeat_death": h1,
+                    "gcs_restart": h2,
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "runtime": r1["launches"],
@@ -2141,6 +2245,8 @@ def main() -> int:
                                              objects.items()},
                                  "groups": g1["launches"],
                                  "autoscaler_loop": a1["launches"],
+                                 "heartbeat_death": h1["launches"],
+                                 "gcs_restart": h2["launches"],
                                  "forward": launches_m,
                                  "moe_forward": m3["launches"],
                                  "train_forward": t2["launches"][0],

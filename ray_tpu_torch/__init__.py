@@ -3,10 +3,12 @@
 with its object plane (node stores that spill, pulls and relay between
 raylets, lineage reconstruction);
 placement groups (``ray_tpu_torch.util``) and the autoscaler's loop
-(``ray_tpu_torch.autoscaler``);
+(``ray_tpu_torch.autoscaler``); the GCS (``ray_tpu_torch.gcs``: storage,
+pubsub, the node, heartbeat, resource, job and KV managers, task
+events) under the in-process ``Cluster``;
 the batched scheduling tick and its placement-group and sinkhorn solves;
 the raylet's scheduling plane around the tick (``Raylet``, an in-process
-``LocalCluster``) and the autoscaler's demand solve
+``Cluster``) and the autoscaler's demand solve
 (``ResourceDemandScheduler``); and the
 transformer (dense or switch-MoE) served on one device and trained on one
 device or on a device mesh over ``torch.distributed`` (tensor, data,
@@ -18,7 +20,7 @@ are built from ``ray_tpu_torch/csrc/`` on first use, never at import.
 """
 
 from ray_tpu_torch import exceptions  # noqa: F401
-from ray_tpu_torch._private.cluster import LocalCluster
+from ray_tpu_torch._private.cluster import Cluster
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.raylet import Raylet
 from ray_tpu_torch._private.worker import (available_resources,
@@ -38,7 +40,7 @@ from ray_tpu_torch.scheduler.torch_backend import (BatchSolver,
 # The placement-group API, as ``ray_tpu.util`` (``ray.util``).
 from ray_tpu_torch import util  # noqa: E402,F401
 
-__all__ = ["BatchSolver", "DeviceRuntimeSolver", "LocalCluster",
+__all__ = ["BatchSolver", "DeviceRuntimeSolver", "Cluster",
            "MeshConfig", "ObjectRef", "Raylet", "ResourceDemandScheduler",
            "Transformer", "TransformerConfig", "available_resources",
            "build_mesh", "cluster_resources", "exceptions", "forward", "get",

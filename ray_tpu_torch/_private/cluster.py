@@ -1,256 +1,193 @@
-"""An in-process cluster of the port's raylets.
+"""The in-process cluster: the GCS, the raylets and the object directory.
 
-``LocalCluster`` stands in for the GCS until the GCS is ported: it holds
-the raylets of one process and does the resource broadcast that the
-reference GCS does for in-process raylets (``GcsServer._poll_and_broadcast``
-in ``ray_tpu/gcs/server.py``): a thread polls every raylet's
-``get_resource_report()`` every
-``gcs_resource_broadcast_period_milliseconds`` and sends each raylet the
-full batch of rows, with the nodes removed since the last round.  It
-also holds what the driver's runtime reads from the GCS: the function
-table (the GCS KV's ``fn:`` rows, ``function_table``), the node table
-(``nodes``, ``cluster_resources``, ``available_resources``) and the
-object directory every raylet's pulls read (``object_directory``,
-reference ``cluster.py:31``), and wires the driver's core worker into
-every raylet (``attach_core_worker``).  ``remove_node`` delivers the
-node's death as the reference's GCS does on an intentional shutdown: the
-directory forgets the node's copies, the core worker reconstructs the
-objects that lost their last one and the placement-group manager
-reschedules the bundles the node held.
+A port of ``ray_tpu._private.cluster.Cluster`` (reference
+``python/ray/cluster_utils.py:100``): several raylets of one process,
+each with its own node id, under one ``GcsServer`` (``gcs``).  The GCS
+polls and broadcasts the raylets' resources on its loop, watches their
+heartbeats (a raylet killed by ``kill_node`` is SUSPECT after
+``num_heartbeats_suspect`` missed beats and DEAD after
+``num_heartbeats_timeout``), and publishes each death: the placement-group
+manager reschedules the node's bundles, then this cluster
+(``_on_node_death``) drops the node from its membership, the object
+directory forgets its copies and the core worker reconstructs the
+objects that lost their last one.  ``remove_node`` stops a raylet
+gracefully (it unregisters, and its death is delivered at once);
+``restart_gcs`` kills the GCS and starts another over the same file
+store, which reconciles against the raylets still running.
 
-It also holds the GCS side of placement groups: a GCS-side resource view
-(``resource_view``, the reference ``GcsResourceManager.view``) fed from
-each broadcast round's rows as the reference's poll feeds it (a node's
-row when it joins, its availability after that), the GCS event loop
-(``loop``, thread ``ray_tpu_torch::gcs``) that the manager retries on,
-the ``placement_group_table`` and the manager itself
-(``placement_group_manager``, ``ray_tpu_torch.gcs``).
-
-    cluster = LocalCluster(device="cpu")          # "cuda" by default
+    cluster = Cluster(device="cpu")          # "cuda" by default
     head = cluster.add_node({"CPU": 4})
-    cluster.add_node({"CPU": 8, "memory": 32})
-    head.request_worker_lease_batch(specs, reply)
+    victim = cluster.add_node({"CPU": 8, "memory": 32})
+    cluster.kill_node(victim)                # dies by missed heartbeats
     ...
     cluster.shutdown()
 
-The device is where the raylets' batched ticks and the placement-group
-bundle solve run.
+The device is where the raylets' batched ticks and the GCS's bundle
+solve run.  Raylets reach the GCS only through ``cluster.gcs`` at call
+time, so a restart rebinds every one of them.
 
-There is no heartbeat, so no node is ever suspect, and a node dies only
-by ``remove_node`` (node death by missed heartbeats is ROADMAP A.4b.6).
+Divergence (ROADMAP C.9): ``add_node`` and a graceful ``remove_node`` run
+one poll-and-broadcast round on the GCS loop before they return, so that
+every view holds the change at once; the reference's views wait for the
+next period's round.
 """
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 from typing import Dict, List, Optional
 
-from ray_tpu_torch._private.config import get_config
-from ray_tpu_torch._private.event_loop import EventLoop
 from ray_tpu_torch._private.object_manager import ObjectDirectory
 from ray_tpu_torch._private.raylet import Raylet
-from ray_tpu_torch.gcs.placement_group_manager import \
-    GcsPlacementGroupManager
-from ray_tpu_torch.scheduler.resources import (ClusterResourceView,
-                                               NodeResources, _quantize)
-
-logger = logging.getLogger(__name__)
+from ray_tpu_torch.gcs.server import GcsServer
 
 
-class LocalCluster:
-    def __init__(self, device=None):
+class Cluster:
+    def __init__(self, device=None, gcs_storage_path: Optional[str] = None):
         self.device = device
-        self._lock = threading.Lock()
-        # One broadcast round at a time, so that a stale round never
-        # lands after a newer one.
-        self._round_lock = threading.Lock()
-        self._raylets: Dict = {}            # node_id -> Raylet, in join order
-        self._removed_pending: List = []
-        self._stop = threading.Event()
-        self.core_worker = None
-        self.function_table = FunctionTable()
+        self._gcs_storage_path = gcs_storage_path
+        self.gcs = GcsServer(storage_path=gcs_storage_path, device=device)
         self.object_directory = ObjectDirectory()
-        self.resource_view = ClusterResourceView()
-        self.placement_group_table = Table()
-        self.loop = EventLoop("gcs")
-        self.placement_group_manager = GcsPlacementGroupManager(self)
-        period = get_config().gcs_resource_broadcast_period_milliseconds
-        self._thread = threading.Thread(
-            target=self._broadcast_loop, args=(period / 1000.0,),
-            daemon=True, name="ray_tpu_torch::resource_broadcast")
-        self._thread.start()
+        self._lock = threading.Lock()
+        self._raylets: List[Raylet] = []
+        # Every raylet ever started, the dead ones included: shutdown
+        # stops their worker threads and stores too.
+        self._ever_raylets: List[Raylet] = []
+        self.core_worker = None
+        self.gcs.subscribe_node_death(self._on_node_death)
 
     @property
     def head_node(self) -> Optional[Raylet]:
         with self._lock:
-            return next(iter(self._raylets.values()), None)
+            return self._raylets[0] if self._raylets else None
 
     def raylets(self) -> List[Raylet]:
         with self._lock:
-            return list(self._raylets.values())
+            return list(self._raylets)
 
     def raylet(self, node_id) -> Optional[Raylet]:
-        with self._lock:
-            return self._raylets.get(node_id)
+        """The live raylet of ``node_id``, as the GCS knows it."""
+        return self.gcs.raylet(node_id)
 
+    # ---- membership -----------------------------------------------------
     def add_node(self, resources: Dict[str, float], node_name: str = "",
                  labels: Optional[Dict] = None,
                  object_store_memory: Optional[int] = None) -> Raylet:
         """Start a raylet on this cluster's device, with a node store of
-        ``object_store_memory`` bytes (the config's by default), and
-        broadcast, so that every view holds the new node when this
-        returns."""
+        ``object_store_memory`` bytes (the config's by default), register
+        it with the GCS and broadcast, so that every view holds the new
+        node when this returns."""
         raylet = Raylet(self, resources, node_name=node_name, labels=labels,
                         device=self.device,
                         object_store_memory=object_store_memory)
         with self._lock:
             raylet.core_worker = self.core_worker
-            self._raylets[raylet.node_id] = raylet
+            self._raylets.append(raylet)
+            self._ever_raylets.append(raylet)
+        self.gcs.register_raylet(raylet)
         self.broadcast_now()
         return raylet
 
-    def remove_node(self, raylet: Raylet) -> None:
-        """Stop the raylet, broadcast its removal, then deliver its
-        death: the directory drops its copies and the core worker
-        reconstructs the objects still referenced that lost their last
-        copy (reference ``Cluster._on_node_death``)."""
+    def remove_node(self, raylet: Raylet, graceful: bool = True) -> None:
+        """Stop ``raylet``: gracefully, it unregisters, its death is
+        delivered and its removal broadcast before this returns;
+        otherwise as ``kill_node``."""
         with self._lock:
-            if self._raylets.pop(raylet.node_id, None) is None:
-                return
-            self._removed_pending.append(raylet.node_id)
-            core = self.core_worker
-        raylet.shutdown()
-        self.broadcast_now()
-        lost = self.object_directory.on_node_death(raylet.node_id)
-        if core is not None:
-            core.on_node_death(raylet.node_id, lost)
-        self.placement_group_manager.on_node_death(raylet.node_id)
+            if raylet in self._raylets:
+                self._raylets.remove(raylet)
+        if graceful:
+            raylet.shutdown()
+            self.broadcast_now()
+        else:
+            self.kill_node(raylet)
+
+    def kill_node(self, raylet: Raylet) -> None:
+        """Hard kill: no unregistration and no more heartbeats; the GCS
+        declares the node dead after ``num_heartbeats_timeout`` missed
+        beats."""
+        with self._lock:
+            if raylet in self._raylets:
+                self._raylets.remove(raylet)
+        raylet.kill()
 
     def wait_for_nodes(self, count: int, timeout: float = 10.0) -> bool:
-        """Whether ``count`` raylets are up within ``timeout`` seconds."""
+        """Whether the GCS holds ``count`` live nodes within
+        ``timeout`` seconds."""
         deadline = time.monotonic() + timeout
-        while len(self.raylets()) < count:
-            if time.monotonic() >= deadline:
-                return False
+        while time.monotonic() < deadline:
+            if len(self.gcs.node_manager.alive_nodes) >= count:
+                return True
             time.sleep(0.01)
-        return True
+        return False
 
+    def broadcast_now(self) -> None:
+        """One poll-and-broadcast round on the GCS loop, done when this
+        returns."""
+        gcs = self.gcs
+        sync = gcs.resource_manager._poll_and_broadcast
+        done = threading.Event()
+
+        def run():
+            try:
+                sync()
+            finally:
+                done.set()
+        gcs.loop.post(run, "gcs.broadcast_now")
+        if not done.wait(60):
+            raise TimeoutError("the GCS loop did not run the broadcast")
+
+    # ---- driver wiring --------------------------------------------------
     def attach_core_worker(self, core_worker) -> None:
         """Make ``core_worker`` the owner every raylet's tasks report to
         and read their object arguments from."""
         with self._lock:
             self.core_worker = core_worker
-            for raylet in self._raylets.values():
+            for raylet in self._raylets:
                 raylet.core_worker = core_worker
 
-    # ---- the node table (the GCS's node and resource managers) ---------
-    def nodes(self) -> List[dict]:
-        return [raylet.node_info() for raylet in self.raylets()]
+    def _on_node_death(self, node_id) -> None:
+        """The GCS's death notification: drop the node, forget its
+        copies and reconstruct the referenced objects that lost their
+        last one."""
+        with self._lock:
+            self._raylets = [r for r in self._raylets
+                             if r.node_id != node_id]
+            core = self.core_worker
+        lost = self.object_directory.on_node_death(node_id)
+        if core is not None:
+            core.on_node_death(node_id, lost)
 
-    def cluster_resources(self) -> Dict[str, float]:
-        return _sum_rows(r.local_resources.to_float_dict("total")
-                         for r in self.raylets())
-
-    def available_resources(self) -> Dict[str, float]:
-        """Read from each raylet's own ledger, as the reference reads
-        in-process raylets (``live_available_resources``)."""
-        return _sum_rows(r.local_resources.to_float_dict("available")
-                         for r in self.raylets())
-
-    def broadcast_now(self) -> None:
-        """One synchronous poll-and-broadcast round."""
-        with self._round_lock:
-            with self._lock:
-                raylets = list(self._raylets.items())
-                removed, self._removed_pending = self._removed_pending, []
-            rows = {node_id: raylet.get_resource_report()
-                    for node_id, raylet in raylets}
-            self._update_gcs_view(rows, removed)
-            batch = {"rows": rows, "full": True, "removed": removed}
-            for _node_id, raylet in raylets:
-                raylet.update_resource_usage(batch)
-
-    def _update_gcs_view(self, rows: Dict, removed: List) -> None:
-        """The GCS-side view, as the reference's poll keeps it: a
-        joining node's whole row, then its availability only."""
-        view = self.resource_view
-        for node_id in removed:
-            view.remove_node(node_id)
-        for node_id, usage in rows.items():
-            if view.node_resources(node_id) is None:
-                node = NodeResources(usage["total"])
-                node.available = {k: _quantize(v)
-                                  for k, v in usage["available"].items()}
-                view.add_node(node_id, node)
-            else:
-                view.update_available(node_id, usage["available"])
-
-    def _broadcast_loop(self, period_s: float) -> None:
-        while not self._stop.wait(period_s):
-            try:
-                self.broadcast_now()
-            except Exception:
-                # The broadcaster must outlive one bad round; the next
-                # round sends full rows again.
-                logger.exception("resource broadcast round failed")
+    def restart_gcs(self) -> GcsServer:
+        """Kill the GCS and start another over the same file store, then
+        reconcile it against the raylets still running (the surface of
+        ``tests/test_gcs_fault_tolerance.py``).  Needs
+        ``gcs_storage_path``: the memory store dies with its GCS.  The
+        three steps' ms are kept in ``restart_ms``."""
+        if self._gcs_storage_path is None:
+            raise ValueError("restart_gcs requires gcs_storage_path "
+                             "(the in-memory store dies with the GCS)")
+        t0 = time.perf_counter()
+        self.gcs.shutdown()
+        t1 = time.perf_counter()
+        self.gcs = GcsServer(storage_path=self._gcs_storage_path,
+                             device=self.device)
+        self.gcs.subscribe_node_death(self._on_node_death)
+        t2 = time.perf_counter()
+        self.gcs.reconcile(self.raylets())
+        self.restart_ms = {"shutdown": (t1 - t0) * 1e3,
+                           "reload": (t2 - t1) * 1e3,
+                           "reconcile": (time.perf_counter() - t2) * 1e3}
+        return self.gcs
 
     def shutdown(self) -> None:
-        self._stop.set()
-        self._thread.join(timeout=5)
-        self.loop.stop()
+        """Stop every raylet ever started, then the GCS.  The driver is
+        detached and the GCS loops stopped first: the raylets' deaths
+        reconstruct and reschedule nothing."""
         with self._lock:
-            raylets = list(self._raylets.values())
-            self._raylets.clear()
-        for raylet in raylets:
+            self.core_worker = None
+            everyone = list(self._ever_raylets)
+        self.gcs.stop_loops()
+        for raylet in everyone:          # Raylet.shutdown is idempotent
             raylet.shutdown()
-
-
-def _sum_rows(rows) -> Dict[str, float]:
-    out: Dict[str, float] = {}
-    for row in rows:
-        for k, v in row.items():
-            out[k] = out.get(k, 0.0) + v
-    return out
-
-
-class Table:
-    """A locked table of records by key (the GCS table storage's part
-    the placement-group manager writes; the storage is ROADMAP A.4b.4)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._rows: Dict = {}
-
-    def put(self, key, value) -> None:
-        with self._lock:
-            self._rows[key] = value
-
-    def get(self, key):
-        with self._lock:
-            return self._rows.get(key)
-
-    def get_all(self) -> List[tuple]:
-        with self._lock:
-            return list(self._rows.items())
-
-
-class FunctionTable:
-    """The function table: ``put``/``get`` of exported function blobs
-    by key, the GCS KV's part that ``FunctionManager`` uses."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._rows: Dict[bytes, bytes] = {}
-
-    def put(self, key: bytes, value: bytes, overwrite: bool = True) -> bool:
-        with self._lock:
-            if not overwrite and key in self._rows:
-                return False
-            self._rows[key] = value
-            return True
-
-    def get(self, key: bytes) -> Optional[bytes]:
-        with self._lock:
-            return self._rows.get(key)
+        self.gcs.shutdown()

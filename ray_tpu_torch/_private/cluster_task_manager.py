@@ -29,9 +29,10 @@ per view, so two raylets whose solves each rank the other first spill
 the same leases back and forth for as long as neither view changes.
 Without the flag the port behaves as the reference does.
 
-The reference's flight recorder, tracing spans, fault-injection points
-and task-lifecycle events are debug and GCS planes the port does not
-have yet.
+A task handed to local dispatch emits its SCHEDULED task event
+(reference ``cluster_task_manager.py:317``).  The reference's flight
+recorder, tracing spans and fault-injection points are debug planes the
+port does not have yet (ROADMAP A.4b.7).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from ray_tpu_torch._private.metrics_agent import (get_metrics_registry,
                                                   record_internal)
 from ray_tpu_torch._private.task_spec import TaskSpec
 from ray_tpu_torch._private.thread_registry import loop_only
+from ray_tpu_torch.gcs import task_events
 from ray_tpu_torch.scheduler import policy as policy_mod
 
 logger = logging.getLogger(__name__)
@@ -130,6 +132,9 @@ class ClusterTaskManager:
         self._pending_batches: list = []
         # Re-sent spillbacks: granted here or rejected on the next tick.
         self._grant_or_reject: deque = deque()
+        # The reason every lease is rejected with once the raylet is
+        # killed (reject_all), else False.
+        self._closed = False
         self._node_label = self._raylet.node_id.hex()[:12]
         self.tick_stats = {"ticks": 0, "busy_ticks": 0,
                            "spillbacks": 0,
@@ -149,6 +154,11 @@ class ClusterTaskManager:
                            # grant_or_reject leases this node could not
                            # run and rejected.
                            "spillback_rejections": 0}
+        # Device solves that ran while the view masked suspect nodes,
+        # and their placements (grants or spillbacks) on a node masked
+        # when the tick started: the mask's promise is that the second
+        # stays 0.
+        self.mask_stats = {"masked_ticks": 0, "masked_placements": 0}
         # Consecutive failed dispatch handoffs per task (cleared on
         # success): past _MAX_DISPATCH_REQUEUES the lease is rejected.
         self._dispatch_failures: Dict = {}
@@ -158,10 +168,16 @@ class ClusterTaskManager:
     def queue_and_schedule(self, spec: TaskSpec, reply: Callable,
                            grant_or_reject: bool = False):
         with self._lock:
-            if grant_or_reject:
+            closed = self._closed
+            if closed:
+                pass
+            elif grant_or_reject:
                 self._grant_or_reject.append((spec, reply))
             else:
                 self._queues[spec.scheduling_class].append((spec, reply))
+        if closed:
+            reply({"rejected": True, "reason": self._closed})
+            return
         self._maybe_prestart(1)
         self.request_tick()
 
@@ -173,12 +189,36 @@ class ClusterTaskManager:
         one tick after the request."""
         batch = _LeaseBatch(len(specs), reply)
         with self._lock:
+            closed = self._closed
             for i, spec in enumerate(specs):
+                if closed:
+                    break
                 self._queues[spec.scheduling_class].append(
                     (spec, _BatchEntry(batch, i)))
-            self._pending_batches.append(batch)
+            if not closed:
+                self._pending_batches.append(batch)
+        if closed:
+            for i in range(len(specs)):
+                batch.resolve(i, {"rejected": True, "reason": closed})
+            return
         self._maybe_prestart(len(specs))
         self.request_tick()
+
+    def reject_all(self, reason: str) -> None:
+        """Answer every queued lease ``{"rejected": True, "reason":
+        reason}`` and every later one alike: the raylet was killed, and
+        its loop is stopped."""
+        with self._lock:
+            self._closed = reason
+            work = [e for q in self._queues.values() for e in q]
+            work += [e for q in self._infeasible.values() for e in q]
+            work += list(self._grant_or_reject)
+            self._queues.clear()
+            self._infeasible.clear()
+            self._grant_or_reject.clear()
+            self._pending_batches = []
+        for _spec, reply in work:
+            reply({"rejected": True, "reason": reason})
 
     def on_resources_freed(self):
         self.request_tick()
@@ -267,6 +307,9 @@ class ClusterTaskManager:
         was registered; the caller requeues the task and returns its
         reservation."""
         try:
+            task_events.emit(self._raylet.cluster, spec.task_id,
+                             task_events.SCHEDULED,
+                             node_id=self._raylet.node_id.hex())
             self._raylet.local_task_manager.queue_and_schedule(spec, reply)
             self._dispatch_failures.pop(spec.task_id, None)
             return True
@@ -485,6 +528,7 @@ class ClusterTaskManager:
         self.tick_stats["last_batch_tasks"] = len(work)
         self.tick_stats["last_batch_classes"] = len(
             {spec.scheduling_class for spec, _ in work})
+        masked = view.masked_nodes()
         try:
             assignments = self._solver.solve(
                 view, [spec for spec, _ in work])
@@ -497,6 +541,17 @@ class ClusterTaskManager:
         if assignments is None:
             self._requeue_all(work)
             return False
+        if masked:
+            # The device solve's placements: other strategies are placed
+            # by the policy on the host, and a batch of those alone
+            # launches nothing.
+            hybrid = policy_mod.SchedulingType.HYBRID
+            placed = [target for (spec, _), target in zip(work, assignments)
+                      if spec.scheduling_options.scheduling_type is hybrid]
+            if placed:
+                self.mask_stats["masked_ticks"] += 1
+                self.mask_stats["masked_placements"] += sum(
+                    target in masked for target in placed)
         local_id = self._raylet.node_id
         # Local grants commit first, so that _spillback_reason sees this
         # tick's local reservations.

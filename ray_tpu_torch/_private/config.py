@@ -4,7 +4,8 @@ A copy of the fields of ``ray_tpu._private.config.Config`` that the
 ported modules read, with the same names and defaults: the scheduler
 fields, the placement-group and autoscaler packing fields, the knobs
 of the raylet's scheduling plane (event loop, wakeup debounce, worker
-pool, resource broadcast) and those of the task path (the submitter's
+pool) and those of the GCS (storage, resource broadcast, heartbeat,
+task events and the job graph) and of the task path (the submitter's
 leases, the owner's memory store, retries, lineage, the thread workers'
 start slots) and those of the object plane (the node store, spilling,
 transfers and relay, lineage reconstruction).  Three values differ by
@@ -155,9 +156,29 @@ class Config:
     #: Hard per-node worker cap.
     max_workers_per_node: int = 20_000
 
-    # ------ resource broadcast ------
-    #: Period of the resource usage poll/broadcast loop.
+    # ------ GCS ------
+    #: "memory" keeps the GCS tables in memory; "file" journals them to
+    #: ``<temp_dir>/gcs_store.bin``, which a restarted GCS reloads.
+    gcs_storage_backend: str = "memory"
+    #: Period of the GCS resource usage poll/broadcast loop.
     gcs_resource_broadcast_period_milliseconds: int = 100
+
+    # ------ failure detection (ray_config_def.h:51-55) ------
+    raylet_heartbeat_period_milliseconds: int = 100
+    num_heartbeats_timeout: int = 30
+    #: Missed beats before a node is SUSPECT: schedulers mask it for new
+    #: placements while its objects and groups stay untouched.  Must be
+    #: below num_heartbeats_timeout; the gap is the suspect grace.
+    num_heartbeats_suspect: int = 15
+
+    # ------ task events and the job graph ------
+    #: Lock stripes of the task-event buffer (each emitting thread is
+    #: bound to one).
+    task_event_stripes: int = 8
+    #: Jobs the graph store tracks (least recently updated evicted)...
+    job_graph_max_jobs: int = 16
+    #: ...and terminal task records kept a job (oldest evicted).
+    job_graph_max_tasks: int = 20_000
 
     # ------ event loop ------
     #: Period of the raylet's fallback scheduling tick.

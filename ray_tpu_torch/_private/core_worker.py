@@ -18,9 +18,11 @@ literal argument above ``task_args_inline_bytes_limit`` is promoted to
 such an object.  Actors (``create_actor``, ``submit_actor_task``) wait
 for the actors item, A.4b.5, and with them owner-death invalidation
 (``fail_owned_object``); a CUDA tensor as an object waits for the
-device-object plane (A.5); the task events, tracing spans and flight
-recorder of the reference belong to the GCS and the debug planes
-(A.4b.4, A.4b.7).
+device-object plane (A.5); the tracing spans and flight recorder of the
+reference belong to the debug planes (A.4b.7).  The task events of the
+submit (PENDING_ARGS_AVAIL, with the parent and the argument ids) and of
+a reconstruction (RECONSTRUCTING) go to the GCS's buffer
+(``gcs.task_events``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ray_tpu_torch._private.reference_counter import ReferenceCounter
 from ray_tpu_torch._private.serialization import serialize
 from ray_tpu_torch._private.task_manager import TaskManager
 from ray_tpu_torch._private.task_spec import TaskArg, TaskSpec
+from ray_tpu_torch.gcs import task_events
 
 
 
@@ -69,7 +72,7 @@ class CoreWorker:
         self.memory_store = MemoryStore()
         self.reference_counter = ReferenceCounter()
         self.task_manager = TaskManager(self)
-        self.function_manager = FunctionManager(cluster.function_table)
+        self.function_manager = FunctionManager(cluster)
         self.task_submitter = DirectTaskSubmitter(self)
         self.driver_task_id = TaskID.for_driver(job_id)
         self._put_counter = 0
@@ -422,6 +425,18 @@ class CoreWorker:
                     out.append(TaskArg(is_inline=True, value=s))
         return out, dep_ids, holders, borrowed
 
+    @staticmethod
+    def _provenance(spec: TaskSpec) -> Dict[str, Any]:
+        """The submit event's provenance: the submitting task and the
+        argument objects (their ids embed their producers' ids)."""
+        out: Dict[str, Any] = {}
+        if spec.parent_task_id is not None:
+            out["parent_task_id"] = spec.parent_task_id.hex()
+        args = spec.arg_object_ids()
+        if args:
+            out["arg_object_ids"] = [oid.hex() for oid in args]
+        return out
+
     def submit_task(self, spec: TaskSpec, holders=()) -> List[ObjectRef]:
         if spec.runtime_env:
             raise NotImplementedError(
@@ -431,6 +446,12 @@ class CoreWorker:
         self.task_manager.add_pending_task(spec)
         del holders  # the submitted-task refs now pin the promoted args
         self.metrics["tasks_submitted"] += 1
+        task_events.emit(self.cluster, spec.task_id,
+                         task_events.PENDING_ARGS_AVAIL,
+                         name=spec.function_name,
+                         job_id=spec.job_id.hex(),
+                         task_type=spec.task_type,
+                         **self._provenance(spec))
         self.task_submitter.submit(spec)
         return [ObjectRef(oid, owner_id=self.worker_id)
                 for oid in spec.return_ids]
@@ -466,11 +487,18 @@ class CoreWorker:
             st.attempts += 1
             st.next_allowed = now + cfg.lineage_reconstruction_backoff_s \
                 * (2 ** (st.attempts - 1))
+            attempt = st.attempts
         # The recomputed task cannot run without its own inputs.
         for arg_id in spec.arg_object_ids():
             if not self._object_available(arg_id):
                 self.recover_object(arg_id, _depth=_depth + 1)
         self.metrics["lineage_reconstructions"] += 1
+        # The attempt rides above the retry band (retries never pass
+        # max_retries), so the task's FINISHED record rewinds.
+        task_events.emit(self.cluster, spec.task_id,
+                         task_events.RECONSTRUCTING,
+                         name=spec.function_name,
+                         attempt=spec.max_retries + attempt)
         self.task_manager.add_pending_task(spec)
         self.task_submitter.submit(spec)
         return True

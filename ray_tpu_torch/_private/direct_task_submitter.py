@@ -1,9 +1,17 @@
 """Normal-task transport: leasing, pipelining, spillback handling.
 
 A port of ``ray_tpu._private.direct_task_submitter`` for the PyTorch
-port, whole but for two things.  The task events of the transport
-(SCHEDULED, SUBMITTED_TO_WORKER) belong to the GCS (A.4b.4) and are left
-out.  And C.4:
+port, with the task events of the transport (SCHEDULED and
+SUBMITTED_TO_WORKER at each push), whole but for C.4 and C.11.
+
+Divergence on a failed lease (ROADMAP C.11): a lease request that fails
+after its task already left the class's queue (the task went out on
+another lease; a stale request to a killed raylet, answered "node
+dead") is dropped and counted in
+``submitter_stats["stale_lease_failures"]``; the reference resubmits its
+task, or charges it a retry, and may run a finished task again.
+
+C.4:
 
 Divergence on a spilled lease (ROADMAP C.4): ``_on_lease_result``
 re-sends a spillback to the raylet it names with ``grant_or_reject``,
@@ -47,6 +55,7 @@ from typing import Dict, List, Optional, Tuple
 from ray_tpu_torch import exceptions
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.task_spec import TaskSpec
+from ray_tpu_torch.gcs import task_events
 
 logger = logging.getLogger(__name__)
 
@@ -109,7 +118,8 @@ class DirectTaskSubmitter:
         ).max_pending_lease_requests_per_scheduling_category
         #: Re-sent spillbacks their target rejected (C.4, module
         #: docstring).
-        self.submitter_stats = {"spillback_rejections": 0}
+        self.submitter_stats = {"spillback_rejections": 0,
+                                "stale_lease_failures": 0}
 
     # ---- entry ----------------------------------------------------------
     def submit(self, spec: TaskSpec):
@@ -441,8 +451,18 @@ class DirectTaskSubmitter:
             state.leased_task_ids.discard(spec.task_id)
             try:
                 state.queue.remove(spec)
+                queued = True
             except ValueError:
-                pass
+                queued = False
+        if not queued:
+            # A stale request (C.11): its task left the queue on another
+            # lease, so nothing is to be retried; the reference would
+            # resubmit it, and run it twice.
+            with self._lock:
+                self._lease_bounces.pop(spec.task_id, None)
+                self.submitter_stats["stale_lease_failures"] += 1
+            self._pump(key)
+            return
         if transient:
             # The lease bounced off a dying/unreachable node whose death
             # the GCS has not declared yet, so the scheduler may keep
@@ -486,6 +506,20 @@ class DirectTaskSubmitter:
 
     # ---- dispatch -------------------------------------------------------
     def _push(self, spec: TaskSpec, worker, raylet, key: int):
+        nid = getattr(worker, "node_id", None)
+        wid = getattr(worker, "worker_id", None)
+        nid_hex = nid.hex() if nid is not None else ""
+        # The submitter's SCHEDULED: a task pushed on a reused lease
+        # never passes the raylet's tick, and without it its queue_wait
+        # has no sample.  Where the raylet's SCHEDULED came first, the
+        # manager keeps that one.
+        task_events.emit(self._core.cluster, spec.task_id,
+                         task_events.SCHEDULED, node_id=nid_hex)
+        task_events.emit(self._core.cluster, spec.task_id,
+                         task_events.SUBMITTED_TO_WORKER,
+                         node_id=nid_hex,
+                         worker_id=wid.hex() if wid is not None else "")
+
         def on_done(error):
             if error is None:
                 self._core.task_manager.complete_task(spec)

@@ -8,6 +8,16 @@ reference's names.  The reference's stall watchdog, its fault-injection
 point and its lock-order witness are debug planes the port does not
 have yet.
 
+Divergence: ``schedule_every(..., catch_up=n)`` keeps a timer on its
+period's grid: a late run does not push the next one back, and up to
+``n`` runs that a busy loop missed run at once, one after another; a
+longer pause loses the rest.  The GCS's heartbeat check uses it, so that
+its count of missed beats keeps up with the periods however late the
+loop's thread got the interpreter lock, while a pause of the whole
+process (a long hold of the lock, when no beat could be sent either)
+counts a few periods only; the reference's timers all drift by each
+run's lateness.
+
 Divergence: the reference prints a handler's exception and goes on.
 This loop goes on too, and also counts the failure, in
 ``handler_stats[name]["errors"]`` and the
@@ -21,7 +31,7 @@ import heapq
 import logging
 import threading
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from ray_tpu_torch._private import thread_registry
 from ray_tpu_torch._private.metrics_agent import (get_metrics_registry,
@@ -35,7 +45,8 @@ class EventLoop:
         self.name = name
         self._cond = threading.Condition()
         self._queue = []            # (name, fn, t_posted) immediate handlers
-        self._timers = []           # (deadline, seq, period, name, fn)
+        # (deadline, seq, period, name, fn, catch_up)
+        self._timers = []
         self._seq = 0
         self._stopped = False
         self.handler_stats: Dict[str, dict] = {}
@@ -57,15 +68,19 @@ class EventLoop:
             self._queue.append((name, fn, time.monotonic()))
             self._cond.notify()
 
-    def schedule_every(self, period_s: float, fn: Callable, name: str):
-        """Periodic timer, rescheduled after each run."""
+    def schedule_every(self, period_s: float, fn: Callable, name: str,
+                       catch_up: Optional[int] = None):
+        """Periodic timer, rescheduled after each run: ``period_s`` after
+        the run's start, or, with ``catch_up``, at the next point of the
+        period's grid, which may be past already (at most ``catch_up``
+        missed runs are made up)."""
         with self._cond:
             if self._stopped:
                 return
             self._seq += 1
             heapq.heappush(self._timers,
                            (time.monotonic() + period_s, self._seq,
-                            period_s, name, fn))
+                            period_s, name, fn, catch_up))
             self._cond.notify()
 
     def schedule_after(self, delay_s: float, fn: Callable,
@@ -76,7 +91,7 @@ class EventLoop:
             self._seq += 1
             heapq.heappush(self._timers,
                            (time.monotonic() + delay_s, self._seq,
-                            None, name, fn))
+                            None, name, fn, None))
             self._cond.notify()
 
     def stop(self):
@@ -114,12 +129,17 @@ class EventLoop:
                         name, fn, posted_at = self._queue.pop(0)
                         break
                     if self._timers and self._timers[0][0] <= now:
-                        _, _, period, name, fn = heapq.heappop(self._timers)
+                        deadline, _, period, name, fn, catch_up = \
+                            heapq.heappop(self._timers)
                         if period is not None:
+                            nxt = now + period if catch_up is None else \
+                                max(deadline, now - catch_up * period) \
+                                + period
                             self._seq += 1
                             heapq.heappush(
                                 self._timers,
-                                (now + period, self._seq, period, name, fn))
+                                (nxt, self._seq, period, name, fn,
+                                 catch_up))
                         break
                     timeout = None
                     if self._timers:

@@ -8,10 +8,16 @@ a pull, or the owner's memory store), load the function from the
 cluster's function table, run it, store the returns (in the owner's
 memory store, or above 100 KiB in the node's store).
 
+The RUNNING task event is emitted as the task starts (reference
+``executor.py:77``).  Divergence: a task whose node was killed while it
+ran stores no return and reports a ``NodeDiedError``, so its owner
+retries it on a live node; the reference's executor thread stores the
+late returns on the dead node.
+
 Left out, each with the item that brings it: the runtime env applied
 around the task body (``submit_task`` raises for a non-empty one), the
-task events (the GCS, ROADMAP A.4b.4), the ``util.tracing`` span (the
-debug planes, A.4b.7), and the actor paths (the actors item, A.4b.5).
+``util.tracing`` span (the debug planes, A.4b.7), and the actor paths
+(the actors item, A.4b.5).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from ray_tpu_torch._private import worker_context
 from ray_tpu_torch._private.ids import ObjectID
 from ray_tpu_torch._private.serialization import deserialize
 from ray_tpu_torch._private.task_spec import TaskSpec
+from ray_tpu_torch.gcs import task_events
 
 
 def resolve_args(spec: TaskSpec, node, core_worker):
@@ -67,11 +74,19 @@ def execute_task(spec: TaskSpec, node, core_worker):
         worker=worker_context.get_context().worker)
     prev = worker_context.get_context()
     worker_context.set_context(ctx)
+    wid = getattr(ctx.worker, "worker_id", None)
+    task_events.emit(node.cluster, spec.task_id, task_events.RUNNING,
+                     node_id=node.node_id.hex(),
+                     worker_id=wid.hex() if wid is not None else "")
     t0 = time.monotonic()
     try:
         args, kwargs = _split_args(resolve_args(spec, node, core_worker))
         fn = core_worker.function_manager.load(spec.function_id)
         result = fn(*args, **kwargs)
+        if node._dead:
+            # The node was killed under the task: its result never
+            # reaches the owner, which retries the task elsewhere.
+            return False, exceptions.NodeDiedError(node.node_id)
         store_returns(spec, result, node, core_worker)
         return True, None
     except Exception as e:  # noqa: BLE001 — user exceptions cross the boundary

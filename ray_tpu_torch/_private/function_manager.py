@@ -1,8 +1,8 @@
-"""Function export through the cluster's function table.
+"""Function export through the GCS KV.
 
 A copy of ``ray_tpu._private.function_manager`` for the PyTorch port.
-The table is ``LocalCluster.function_table``, standing in for the GCS
-KV until the GCS is ported (ROADMAP A.4b.4).
+It reads and writes the cluster's ``gcs.kv`` at every call, so that the
+exports of a file-backed GCS survive its restart.
 
 Parity: reference ``python/ray/_private/function_manager.py`` — user
 functions are cloudpickled once per definition, exported to the GCS KV keyed
@@ -23,8 +23,8 @@ _KV_PREFIX = b"fn:"
 
 
 class FunctionManager:
-    def __init__(self, kv):
-        self._kv = kv
+    def __init__(self, cluster):
+        self._cluster = cluster
         self._lock = threading.Lock()
         # id(fn) -> (FunctionID, weakref-to-fn); the weakref guards
         # against id() reuse after the original function is collected.
@@ -46,7 +46,8 @@ class FunctionManager:
         blob = dumps_function(fn)
         digest = hashlib.sha256(blob).digest()[:FunctionID.SIZE]
         function_id = FunctionID(digest)
-        self._kv.put(_KV_PREFIX + function_id.binary(), blob, overwrite=False)
+        self._cluster.gcs.kv.put(_KV_PREFIX + function_id.binary(), blob,
+                                 overwrite=False)
         try:
             ref = weakref.ref(fn)
         except TypeError:
@@ -63,10 +64,9 @@ class FunctionManager:
             fn = self._load_cache.get(function_id)
         if fn is not None:
             return fn
-        blob = self._kv.get(_KV_PREFIX + function_id.binary())
+        blob = self._cluster.gcs.kv.get(_KV_PREFIX + function_id.binary())
         if blob is None:
-            raise KeyError(f"Function {function_id} not found in the "
-                           "function table")
+            raise KeyError(f"Function {function_id} not found in GCS KV")
         fn = loads_function(blob)
         with self._lock:
             self._load_cache[function_id] = fn

@@ -107,6 +107,11 @@ class DependencyManager:
     def num_waiting(self) -> int:
         return len(self._waiting)
 
+    def take_all(self) -> list:
+        """Every waiting task's ready callback, removed."""
+        waiting, self._waiting = self._waiting, {}
+        return [w.reply for w in waiting.values()]
+
 
 class LocalTaskManager:
     def __init__(self, raylet):
@@ -119,6 +124,9 @@ class LocalTaskManager:
         # released with the lease (a pin left for ever would make every
         # consumed object unspillable).
         self._arg_pins: Dict = {}
+        # The reason every lease is rejected with once the raylet is
+        # killed (reject_all), else False.
+        self._closed = False
         self.dependency_manager = DependencyManager(raylet)
 
     # step 1-2: queue + wait for args
@@ -128,7 +136,12 @@ class LocalTaskManager:
 
     def _on_args_ready(self, spec: TaskSpec, reply: Callable):
         with self._lock:
-            self._dispatch_queue.append((spec, reply))
+            closed = self._closed
+            if not closed:
+                self._dispatch_queue.append((spec, reply))
+        if closed:
+            reply({"rejected": True, "reason": closed})
+            return
         self._raylet.loop.post(self.dispatch, "local.dispatch")
 
     # steps 3-6: pop a worker and bind it.
@@ -172,6 +185,21 @@ class LocalTaskManager:
                 self._raylet.object_store.pin(oid)
             reply({"worker": worker, "raylet": self._raylet,
                    "resources": spec.resources})
+
+    def reject_all(self, reason: str) -> None:
+        """Answer every lease granted here but not yet bound to a worker
+        ``{"rejected": True, "reason": reason}``: the raylet was killed,
+        its loop is stopped, and these replies would never fire."""
+        with self._lock:
+            self._closed = reason
+            queued = list(self._dispatch_queue)
+            self._dispatch_queue.clear()
+        for _spec, reply in queued:
+            reply({"rejected": True, "reason": reason})
+        # A task still waiting for its arguments: its ready callback
+        # now rejects.
+        for ready in self.dependency_manager.take_all():
+            ready()
 
     def release_worker_resources(self, worker) -> None:
         with self._lock:

@@ -7,7 +7,11 @@ pool of executor threads, the local and cluster task managers, the
 lease protocol (``request_worker_lease``, ``request_worker_lease_batch``,
 ``return_worker``), the resource broadcast's receiving end
 (``update_resource_usage``) and ``core_worker``, the owner whose memory
-store holds the objects its tasks pass (wired by ``LocalCluster``); and
+store holds the objects its tasks pass (wired by ``Cluster``); the
+heartbeat to the GCS from a thread of its own
+(``raylet_heartbeat_period_milliseconds``), ``kill`` (a hard death:
+no unregistration, no more beats) and ``shutdown`` (it unregisters);
+and
 the object plane in the reference's order: the node store
 (``object_store``, ``object_store_memory`` bytes, spilling into
 ``<temp_dir>/spill/<node>``), its spill thread
@@ -16,12 +20,22 @@ cluster's object directory; and the placement-group bundle two-phase
 commit (``prepare_bundle_resources``, ``commit_bundle_resources``,
 ``cancel_resource_reserve``, reference ``raylet.py:283-331``).
 
-The reference raylet's heartbeat thread and its native shared-memory
-segment (ROADMAP A.4b.2b; ``use_native_object_store=True`` raises here)
-belong to items the port does not have yet; its resource report carries
-no host statistics and no transfer load (the hint of cross-process
-pulls, which come with process workers).  A raylet made without a
-cluster (``Raylet(None, ...)``) keeps an object directory of its own.
+The reference raylet's native shared-memory segment (ROADMAP A.4b.2b;
+``use_native_object_store=True`` raises here) belongs to an item the
+port does not have yet, and so does its heartbeat's fault-injection
+point (A.4b.7); its resource report carries no host statistics and no
+transfer load (the hint of cross-process pulls, which come with process
+workers).  A raylet made without a cluster (``Raylet(None, ...)``) keeps
+an object directory of its own and sends no heartbeat.
+
+Divergence on ``kill``: the lease requests the killed raylet holds
+queued are answered ``{"rejected": True, "reason": "node dead"}`` (the
+connection loss a remote submitter would see, which it re-leases
+without charging a retry), and a task that a killed node's executor
+thread finishes is reported as a ``NodeDiedError`` without storing its
+returns (``executor.execute_task``), so the owner retries it; the
+reference leaves the queued replies unanswered and stores the late
+returns.
 
 Divergence (ROADMAP C.9): a broadcast row whose totals differ from the
 view's, as a peer's do after it commits or cancels a bundle, replaces
@@ -34,7 +48,9 @@ bundle submitted at another raylet stays infeasible.
 
 from __future__ import annotations
 
+import logging
 import os
+import threading
 from typing import Callable, Dict, Optional
 
 from ray_tpu_torch._private.cluster_task_manager import ClusterTaskManager
@@ -54,6 +70,7 @@ from ray_tpu_torch.scheduler.resources import (ClusterResourceView,
                                                NodeResources,
                                                ResourceRequest, _quantize)
 
+logger = logging.getLogger(__name__)
 
 
 class Raylet:
@@ -78,6 +95,9 @@ class Raylet:
         self.cluster = cluster
         self.node_id = NodeID.from_random()
         self.node_name = node_name or f"node-{self.node_id.hex()[:8]}"
+        #: The registration incarnation the GCS minted; None until
+        #: registered, kept across a GCS restart.
+        self.incarnation: Optional[int] = None
         self.local_resources = NodeResources(resources, labels=labels)
         self.cluster_view = ClusterResourceView()   # local (dirty) view
         self.loop = EventLoop(f"raylet-{self.node_id.hex()[:6]}")
@@ -107,6 +127,7 @@ class Raylet:
             self, ObjectDirectory() if cluster is None
             else cluster.object_directory)
         self._dead = False
+        self._closed = False
         # The bundle two-phase commit's ledger: (pg_id, index) -> request.
         self._prepared_bundles: Dict[tuple, ResourceRequest] = {}
         self._committed_bundles: Dict[tuple, ResourceRequest] = {}
@@ -120,6 +141,19 @@ class Raylet:
             cfg.event_loop_tick_ms / 1000.0,
             self.cluster_task_manager.schedule_and_dispatch,
             "raylet.schedule_tick")
+        # Heartbeats on a thread of their own: the loop runs handlers
+        # one at a time, and a long one would delay the beats behind it
+        # (a false death on a loaded host).
+        self.heartbeat_errors = 0
+        self._hb_stop = threading.Event()
+        self._hb_thread = None
+        if cluster is not None:
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop,
+                args=(cfg.raylet_heartbeat_period_milliseconds / 1000.0,),
+                daemon=True,
+                name=f"ray_tpu_torch::hb::{self.node_id.hex()[:6]}")
+            self._hb_thread.start()
 
     # ---- GCS-facing -----------------------------------------------------
     def node_info(self) -> dict:
@@ -138,6 +172,19 @@ class Raylet:
             "load": {"queued": self.cluster_task_manager.num_queued(),
                      "dispatch": self.local_task_manager.num_queued()},
         }
+
+    def _heartbeat_loop(self, period_s: float):
+        while not self._dead:
+            try:
+                # The GCS is read at every beat: a restart rebinds it.
+                self.cluster.gcs.heartbeat_manager.heartbeat(self.node_id)
+            except Exception:
+                # A failing beat looks like a healthy one until the node
+                # is declared dead: count it and log it.
+                self.heartbeat_errors += 1
+                logger.exception("heartbeat of %s failed", self.node_name)
+            if self._hb_stop.wait(period_s):
+                return
 
     def update_resource_usage(self, batch: dict):
         """Apply a resource broadcast to the local (dirty) view.
@@ -314,10 +361,36 @@ class Raylet:
             self.cluster_view.update_node(self.node_id, res)
 
     # ---- lifecycle ------------------------------------------------------
-    def shutdown(self):
+    def kill(self):
+        """A hard node death: the heartbeats stop and nothing
+        unregisters, so the GCS declares the node dead after
+        ``num_heartbeats_timeout`` missed beats.  The loop stops, the
+        leases it held queued are rejected as "node dead", and the
+        executor threads stop after their current task (a thread cannot
+        be stopped inside one)."""
         if self._dead:
             return
         self._dead = True
+        self._hb_stop.set()
+        self.loop.stop()
+        self.cluster_task_manager.reject_all("node dead")
+        self.local_task_manager.reject_all("node dead")
+        self.object_manager.stop()
+        self.worker_pool.shutdown(timeout=0)
+        self.local_object_manager.stop()
+
+    def shutdown(self):
+        """Stop gracefully: unregister from the GCS (which delivers the
+        death at once), then stop; on a killed raylet, only wait for its
+        threads and close its store."""
+        if self._closed:
+            return
+        self._closed = True
+        killed = self._dead
+        self._dead = True
+        self._hb_stop.set()
+        if not killed and self.cluster is not None:
+            self.cluster.gcs.unregister_raylet(self.node_id)
         # The loop first: no tick may start a worker once the pool's
         # shutdown has taken its list of workers to stop and join.  The
         # pulls next, failing their waiters, so that no worker waits on
@@ -327,6 +400,8 @@ class Raylet:
         self.worker_pool.shutdown()
         self.local_object_manager.stop()
         self.object_store.close()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=5)
 
     def debug_string(self) -> str:
         return (f"Raylet {self.node_name} ({self.node_id.hex()[:8]}): "

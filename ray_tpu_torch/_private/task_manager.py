@@ -1,9 +1,9 @@
 """Owner-side task state: pending set, retries, lineage.
 
 A copy of ``ray_tpu._private.task_manager`` for the PyTorch port, with
-plain ``threading`` locks.  The reference emits a task event at each
-transition (``ray_tpu.gcs.task_events``); those belong to the GCS
-(ROADMAP A.4b.4) and are left out.  A task's spec stays in the lineage
+plain ``threading`` locks.  It emits the owner's task events: FINISHED,
+FAILED, and PENDING_ARGS_AVAIL with the next attempt at a retry.  A
+task's spec stays in the lineage
 table until ``evict_lineage`` (its returns went out of scope) or the
 lineage budget drops it, and ``get_spec``/``lineage_spec_for_object``
 give it to the core worker's ``recover_object``.
@@ -24,6 +24,7 @@ from ray_tpu_torch import exceptions
 from ray_tpu_torch._private.config import get_config
 from ray_tpu_torch._private.ids import ObjectID, TaskID
 from ray_tpu_torch._private.task_spec import TaskSpec
+from ray_tpu_torch.gcs import task_events
 
 
 class _PendingTask:
@@ -115,6 +116,8 @@ class TaskManager:
             # holds (observed as lost-object + evicted-lineage in the
             # sigkill chaos test).
             return
+        task_events.emit(self._core.cluster, spec.task_id,
+                         task_events.FINISHED)
         self._core.reference_counter.remove_submitted_task_refs(
             spec.arg_object_ids() + list(spec.borrowed_ids))
 
@@ -138,7 +141,13 @@ class TaskManager:
                 do_retry = True
             else:
                 do_retry = False
+            attempt = spec.max_retries - t.retries_left
         if do_retry:
+            # A retry enters the lifecycle again at PENDING_ARGS_AVAIL
+            # with the next attempt number.
+            task_events.emit(self._core.cluster, spec.task_id,
+                             task_events.PENDING_ARGS_AVAIL,
+                             name=spec.function_name, attempt=attempt)
             resubmit(spec)
             return True
         self.fail_task(spec, error)
@@ -154,6 +163,8 @@ class TaskManager:
             # task already completed or failed — don't double-remove
             # arg refs, and don't overwrite sealed returns with errors.
             return
+        task_events.emit(self._core.cluster, spec.task_id,
+                         task_events.FAILED, error=repr(error))
         for oid in spec.return_ids:
             self._core.memory_store.put_error(oid, _user_error(error))
         self._core.reference_counter.remove_submitted_task_refs(

@@ -2,18 +2,20 @@
 
 A port of ``ray_tpu._private.worker`` for the PyTorch port (reference
 ``python/ray/worker.py``): ``init`` starts an in-process cluster (a
-``LocalCluster`` with one head raylet, whose node store holds
+``Cluster`` with one head raylet, whose node store holds
 ``object_store_memory`` bytes) or attaches to the caller's, attaches the
-driver's ``CoreWorker``; ``shutdown`` stops every worker thread, raylet
-loop, pull thread and spill thread and the reference counter's release
-thread; and the
-public ``get``/``put``/``wait``/``nodes``/``cluster_resources``/
-``available_resources`` bodies that ``ray_tpu_torch`` re-exports.
+driver's ``CoreWorker`` and registers the job with the GCS's job
+manager; ``shutdown`` marks the job finished and stops every worker
+thread, raylet loop, heartbeat, pull thread and spill thread, the GCS
+and the reference counter's release thread; and the public
+``get``/``put``/``wait``/``nodes`` (the GCS node manager's table, dead
+nodes included)/``cluster_resources``/``available_resources`` (the
+resource manager's) bodies that ``ray_tpu_torch`` re-exports.
 
 The raylets' batched ticks run on ``device``: the card unless the caller
 passes ``device="cpu"``, so ``init`` raises without a card.  Left out
-until their items: the remote-driver (client) path, jobs and namespaces
-in a GCS (ROADMAP A.4b.4), worker log mirroring, process workers
+until their items: the remote-driver (client) path and namespaces
+(ROADMAP A.4b.10), worker log mirroring, process workers
 (``worker_process_mode="process"`` raises), and the actor entry points
 (``kill``, ``get_actor``; the actors item, A.4b.5).
 """
@@ -26,7 +28,7 @@ import threading
 from typing import List, Optional, Sequence, Tuple
 
 from ray_tpu_torch._private import worker_context
-from ray_tpu_torch._private.cluster import LocalCluster
+from ray_tpu_torch._private.cluster import Cluster
 from ray_tpu_torch._private.config import get_config, initialize_config
 from ray_tpu_torch._private.core_worker import CoreWorker
 from ray_tpu_torch._private.ids import JobID
@@ -72,7 +74,7 @@ def init(*, num_cpus: Optional[float] = None,
     store of ``object_store_memory`` bytes (``Config.object_store_memory``,
     2 GiB, by default); its batched tick runs on ``device`` (the card
     unless ``"cpu"``).  ``_cluster``
-    attaches to the caller's ``LocalCluster`` instead, whose device
+    attaches to the caller's ``Cluster`` instead, whose device
     holds; ``shutdown`` stops it as well, as the reference does.
     """
     w = global_worker()
@@ -96,7 +98,7 @@ def init(*, num_cpus: Optional[float] = None,
                 else float(num_cpus)
             if num_gpus:
                 head["GPU"] = float(num_gpus)
-            cluster = LocalCluster(device=device)
+            cluster = Cluster(device=device)
             try:
                 cluster.add_node({k: v for k, v in head.items() if v},
                                  node_name="head",
@@ -108,6 +110,7 @@ def init(*, num_cpus: Optional[float] = None,
         w.job_id = JobID.next()
         w.core_worker = CoreWorker(cluster, w.job_id)
         cluster.attach_core_worker(w.core_worker)
+        cluster.gcs.job_manager.add_job(w.job_id)
         w.connected = True
         atexit.register(_atexit_shutdown)
         return RuntimeContextInfo(w)
@@ -121,11 +124,12 @@ def shutdown():
     if w is None or not w.connected:
         return
     with _init_lock:
-        core, cluster = w.core_worker, w.cluster
+        core, cluster, job_id = w.core_worker, w.cluster, w.job_id
         w.connected = False
         w.cluster = None
         w.core_worker = None
         worker_context.clear_context()
+        cluster.gcs.job_manager.mark_job_finished(job_id)
         core.reference_counter.close()
         cluster.shutdown()
 
@@ -210,18 +214,21 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
 def nodes() -> List[dict]:
     w = _require_connected()
     out = []
-    for info in w.cluster.nodes():
+    for node_id, info in \
+            w.cluster.gcs.node_manager.get_all_node_info().items():
         entry = dict(info)
-        entry["NodeID"] = info["node_id"]
-        entry["Alive"] = info["alive"]
-        entry["Resources"] = info["resources"]
+        entry["NodeID"] = node_id.hex()
+        entry["Alive"] = info.get("state") == "ALIVE"
+        entry["Resources"] = info.get("resources", {})
         out.append(entry)
     return out
 
 
 def cluster_resources() -> dict:
-    return _require_connected().cluster.cluster_resources()
+    w = _require_connected()
+    return w.cluster.gcs.resource_manager.view.total_cluster_resources()
 
 
 def available_resources() -> dict:
-    return _require_connected().cluster.available_resources()
+    w = _require_connected()
+    return w.cluster.gcs.resource_manager.live_available_resources()

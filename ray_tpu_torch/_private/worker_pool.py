@@ -55,6 +55,7 @@ class Worker:
         self.state = WorkerState.IDLE
         self._queue: "queue.Queue" = queue.Queue()
         self._killed = threading.Event()
+        self._exited = False
         self._thread = threading.Thread(
             target=self._main_loop, daemon=True,
             name=f"ray_tpu_torch::worker::{self.worker_id.hex()[:8]}")
@@ -63,14 +64,20 @@ class Worker:
     def push_task(self, spec, on_done: Callable):
         """Execute a normal task on this worker
         (CoreWorkerService.PushTask parity); ``on_done(error or None)``
-        runs on this worker's thread."""
+        runs on this worker's thread, or fails with
+        ``WorkerCrashedError`` on the caller's when the worker has
+        exited."""
         self._queue.put(("task", spec, on_done))
+        if self._exited:
+            self._fail_queued()
 
     def stop(self):
         """Stop the thread after its current task.  The worker is
         marked dead and leaves its pool at once, where the reference
         does both when the thread exits: a stopped worker takes no new
         lease either way."""
+        if self._killed.is_set():
+            return
         self._killed.set()
         self._queue.put(("exit", None, None))
         self.state = WorkerState.DEAD
@@ -110,6 +117,21 @@ class Worker:
     def _on_exit(self):
         self.state = WorkerState.DEAD
         self._pool.on_worker_exit(self)
+        self._exited = True
+        self._fail_queued()
+
+    def _fail_queued(self):
+        """A task pushed after the stop never runs here: fail it, so
+        its owner retries it (the reference leaves it unanswered)."""
+        while True:
+            try:
+                kind, spec, on_done = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if kind == "task":
+                on_done(exceptions.WorkerCrashedError(
+                    f"worker {self.worker_id.hex()[:8]} stopped before "
+                    f"task {spec.task_id.hex()[:8]} ran"))
 
 
 # ---- process-wide startup gate (startup-storm throttle) -----------------
@@ -162,6 +184,7 @@ class WorkerPool:
         # Set by shutdown: a worker started after it (a tick still
         # dispatching on the raylet's loop) is stopped, not pooled.
         self._closed = False
+        self._stopped: List[Worker] = []
         #: Most workers alive at once (threads of this pool).
         self.peak_workers = 0
 
@@ -296,6 +319,10 @@ class WorkerPool:
         with self._lock:
             self._closed = True
             workers = list(self._all.values())
+            # A second call (after a kill that waited for nothing) joins
+            # the threads the first one stopped.
+            self._stopped += workers
+            workers = list(self._stopped)
         for w in workers:
             w.stop()
         deadline = time.monotonic() + timeout

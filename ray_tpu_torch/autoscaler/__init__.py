@@ -3,7 +3,7 @@
 A port of ``ray_tpu.autoscaler`` (reference ``python/ray/autoscaler/``):
 ``StandardAutoscaler``, ``ResourceDemandScheduler`` (its pack mode on the
 class-fill kernel), ``LoadMetrics``, the ``NodeProvider`` interface with
-``FakeMultiNodeProvider`` (raylets of a ``LocalCluster``), the
+``FakeMultiNodeProvider`` (raylets of a ``Cluster``), the
 ``Monitor`` that bridges a cluster to the autoscaler and
 ``request_resources``.
 """

@@ -6,7 +6,7 @@ raylet's resource report and pending demand
 (``cluster_task_manager.resource_load()``) and the placement-group
 manager's pending groups into ``LoadMetrics`` (``update_load_metrics``),
 then runs ``StandardAutoscaler.update`` (``update_all``).  It attaches to
-a ``LocalCluster``; ``start(interval_s)`` runs the rounds on a thread of
+a ``Cluster``; ``start(interval_s)`` runs the rounds on a thread of
 its own (``ray_tpu_torch::autoscaler_monitor``), which ``stop()`` joins;
 tests tick it by hand.  ``device`` is where the autoscaler's pack-mode
 solves run: the card unless the caller passes ``"cpu"``.
@@ -61,7 +61,7 @@ class Monitor:
         pending_pgs = [
             {"strategy": pg.strategy,
              "bundles": [b.to_dict() for b in pg.bundles]}
-            for pg in self.cluster.placement_group_manager.pending_groups()]
+            for pg in self.cluster.gcs.placement_group_manager.pending_groups()]
         with self.load_metrics.lock:
             self.load_metrics.pending_demands = demands
             self.load_metrics.pending_placement_groups = pending_pgs

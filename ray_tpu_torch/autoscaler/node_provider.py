@@ -2,7 +2,7 @@
 
 A port of ``ray_tpu.autoscaler.node_provider`` for the PyTorch port:
 ``NodeProvider``, ``MockProvider`` and ``FakeMultiNodeProvider``, the
-last adding and removing raylets of a ``LocalCluster``
+last adding and removing raylets of a ``Cluster``
 (``add_node(resources)``, ``remove_node``).  ``LocalProcessProvider``,
 which launches node-host OS processes, waits for process workers and the
 wire (ROADMAP A.4b.9).
@@ -125,7 +125,7 @@ class MockProvider(NodeProvider):
 
 class FakeMultiNodeProvider(NodeProvider):
     """Backs provider nodes with real in-process raylets on a
-    ``LocalCluster``: autoscaler decisions add and remove schedulable
+    ``Cluster``: autoscaler decisions add and remove schedulable
     nodes, as the reference's fake_multi_node provider launches real
     raylet processes.  A node gets its type's ``resources`` (``{"CPU":
     1}`` by default), those above 0."""

@@ -1,3 +1,3 @@
-"""The GCS's managers that the port has: the placement-group manager,
-hung off ``LocalCluster`` until the GCS itself is ported (ROADMAP
-A.4b.4)."""
+"""The GCS of the port: table storage, pubsub, the server with its node,
+heartbeat, resource, job, KV and worker managers, the task-event
+pipeline and job graph, and the placement-group manager."""

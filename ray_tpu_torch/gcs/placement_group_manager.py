@@ -5,11 +5,13 @@ A port of ``ray_tpu.gcs.placement_group_manager`` (reference
 ``gcs_placement_group_manager.cc``: the pending queue and its retry,
 ``SchedulePendingPlacementGroups``; ``gcs_placement_group_scheduler.cc``:
 PrepareResources, CommitResources and the rollback by
-CancelResourceReserve).  Its GCS is the ``LocalCluster`` until the GCS is
-ported (ROADMAP A.4b.4): the manager reads the cluster's GCS-side
-resource view (``resource_view``), retries on the cluster's GCS loop
-(``loop``, every 50 ms), writes the cluster's ``placement_group_table``
-and reaches raylets through ``raylet(node_id)``.
+CancelResourceReserve), hung off the ``GcsServer``: the manager reads
+the resource manager's view (``gcs.resource_manager.view``), retries on
+the GCS loop (``gcs.loop``, every 50 ms), writes the placement-group
+table of the GCS storage (``gcs.storage.placement_group_table``) and
+reaches raylets through ``gcs.raylet(node_id)``.  ``reconcile`` rebuilds
+the groups from that table after a GCS restart and releases the bundles
+raylets hold for groups the table no longer has (ReleaseUnusedBundles).
 
 The bundle-to-node solve is ``scheduler.bundle_packing.pack_bundles`` on
 the cluster's device: the device bundle solve on a cluster of at least
@@ -21,8 +23,8 @@ The ``ray_tpu.pg.bundle_packing.*`` collector exports those counters.
 
 Where the reference notes a dropped ready callback on its debug plane
 (``swallow.noted``, ROADMAP A.4b.7), this manager logs it and counts it
-in ``stats["ready_callback_errors"]``.  ``reconcile``, the rebuild after
-a GCS restart, waits for the GCS (A.4b.4).
+in ``stats["ready_callback_errors"]``, and a failed release in
+``reconcile`` in ``stats["reconcile_cancel_errors"]``.
 
 Divergence: a group removed while its two-phase commit runs on the loop
 returns the bundles it just committed (the reference would mark it
@@ -100,7 +102,8 @@ class GcsPlacementGroupManager:
         self._named: Dict[str, PlacementGroupID] = {}
         self._pending: List[PlacementGroupID] = []
         self._ready_callbacks: Dict[PlacementGroupID, list] = {}
-        self.stats = {"ready_callback_errors": 0}
+        self.stats = {"ready_callback_errors": 0,
+                      "reconcile_cancel_errors": 0}
         # Retry cadence for pending groups (SchedulePendingPlacementGroups).
         gcs.loop.schedule_every(0.05, self._schedule_pending, "pg.tick")
         get_metrics_registry().register_collector(self, _collect)
@@ -116,7 +119,7 @@ class GcsPlacementGroupManager:
             self._pending.append(pg.pg_id)
             if ready_cb:
                 self._ready_callbacks.setdefault(pg.pg_id, []).append(ready_cb)
-            self._gcs.placement_group_table.put(pg.pg_id, pg.info())
+            self._gcs.storage.placement_group_table.put(pg.pg_id, pg.info())
         self._gcs.loop.post(self._schedule_pending, "pg.schedule")
         return pg
 
@@ -133,7 +136,7 @@ class GcsPlacementGroupManager:
                 self._pending.remove(pg_id)
             placed = dict(pg.bundle_nodes)
             pg.bundle_nodes = {}
-            self._gcs.placement_group_table.put(pg_id, pg.info())
+            self._gcs.storage.placement_group_table.put(pg_id, pg.info())
         self._cancel(pg_id, placed.items())
 
     def get(self, pg_id: PlacementGroupID) -> Optional[GcsPlacementGroup]:
@@ -189,7 +192,7 @@ class GcsPlacementGroupManager:
                         self._pending.remove(pg_id)
 
     def _try_place(self, pg: GcsPlacementGroup) -> bool:
-        view = self._gcs.resource_view
+        view = self._gcs.resource_manager.view
         unplaced = [i for i in range(len(pg.bundles))
                     if i not in pg.bundle_nodes]
         if not unplaced:
@@ -224,7 +227,7 @@ class GcsPlacementGroupManager:
                 pg.bundle_nodes.update(placement)
                 pg.state = PlacementGroupState.CREATED
                 self._state_cond.notify_all()
-                self._gcs.placement_group_table.put(pg.pg_id, pg.info())
+                self._gcs.storage.placement_group_table.put(pg.pg_id, pg.info())
             callbacks = self._ready_callbacks.pop(pg.pg_id, [])
         if removed:
             self._cancel(pg.pg_id, prepared)
@@ -245,6 +248,69 @@ class GcsPlacementGroupManager:
             raylet = self._gcs.raylet(node_id)
             if raylet is not None:
                 raylet.cancel_resource_reserve(pg_id, idx)
+
+    # ---- GCS-restart reconciliation (gcs_init_data.cc and
+    # ReleaseUnusedBundles, node_manager.proto:312-355) ------------------
+    def reconcile(self, raylets):
+        """Rebuild the groups from the durable table after a GCS
+        restart: a bundle still committed on a surviving raylet is
+        adopted, a lost one is placed again, and a bundle a raylet holds
+        for a group the table does not have (or has as removed) is
+        released."""
+        live_nodes = {r.node_id: r for r in raylets}
+        for key, record in \
+                self._gcs.storage.placement_group_table.get_all():
+            pg_id = key if isinstance(key, PlacementGroupID) \
+                else PlacementGroupID(key)
+            if record.get("state") == PlacementGroupState.REMOVED:
+                continue
+            bundles = [ResourceRequest(b) for b in record.get("bundles", [])]
+            pg = GcsPlacementGroup(pg_id, bundles,
+                                   record.get("strategy",
+                                              PlacementStrategy.PACK),
+                                   name=record.get("name", ""))
+            lost = False
+            for idx_str, node_hex in record.get("bundle_nodes",
+                                                {}).items():
+                idx = int(idx_str)
+                node_id = NodeID.from_hex(node_hex)
+                raylet = live_nodes.get(node_id)
+                if raylet is not None and \
+                        (pg_id, idx) in raylet._committed_bundles:
+                    pg.bundle_nodes[idx] = node_id
+                else:
+                    lost = True
+            with self._lock:
+                if len(pg.bundle_nodes) == len(pg.bundles) and not lost:
+                    pg.state = PlacementGroupState.CREATED
+                else:
+                    pg.state = PlacementGroupState.RESCHEDULING
+                    if pg_id not in self._pending:
+                        self._pending.append(pg_id)
+                self._groups[pg_id] = pg
+                if pg.name:
+                    self._named[pg.name] = pg_id
+                self._state_cond.notify_all()
+        # ReleaseUnusedBundles: bundles raylets hold for groups that no
+        # longer exist leaked through the outage.
+        for raylet in raylets:
+            held = dict(raylet._committed_bundles)
+            held.update(raylet._prepared_bundles)
+            for (pg_id, idx) in held:
+                with self._lock:
+                    pg = self._groups.get(pg_id)
+                    keep = pg is not None and \
+                        pg.state != PlacementGroupState.REMOVED
+                if keep:
+                    continue
+                try:
+                    raylet.cancel_resource_reserve(pg_id, idx)
+                except Exception:
+                    # A leaked bundle shrinks its node for good.
+                    self.stats["reconcile_cancel_errors"] += 1
+                    logger.exception("placement group %s: release of "
+                                     "bundle %d failed", pg_id.hex(), idx)
+        self._gcs.loop.post(self._schedule_pending, "pg.reconcile")
 
     # ---- failure handling ----------------------------------------------
     def on_node_death(self, node_id: NodeID):

@@ -1,4 +1,4 @@
-"""R3, the burst of leases across a ``LocalCluster`` of 64 raylets, run
+"""R3, the burst of leases across a ``Cluster`` of 64 raylets, run
 again and again.
 
     python -m ray_tpu_torch.tools.profile_cluster [--runs 10] [--profile]
@@ -86,14 +86,14 @@ def cluster_burst(n_leases=R3_LEASES, device="cuda"):
     AssertionError when a lease is unresolved after ``WALL_S`` (with the
     raylets the open leases were last sent to), granted more than once,
     or a raylet or solver counted an error."""
-    from ray_tpu_torch._private.cluster import LocalCluster
+    from ray_tpu_torch._private.cluster import Cluster
     from ray_tpu_torch.scheduler import bench as sb
     rng = np.random.default_rng(7)
     _, total, demand, _, _, _ = sb.build_problem(rng)
     names = bench_names(total)
     classes = rng.integers(0, 64, size=n_leases)
     specs = make_specs(names, demand, classes)
-    cluster = LocalCluster(device=device)
+    cluster = Cluster(device=device)
     try:
         for i in range(N_RAYLETS):
             cluster.add_node(row_dict(names, total[i]), node_name=f"r3-{i}")

@@ -1,0 +1,401 @@
+"""H1 and H2: node death by missed heartbeats and a GCS restart, on R3's
+cluster through ``ray_tpu_torch.init``.
+
+    python -m ray_tpu_torch.tools.profile_gcs [--phase h1|h2|both]
+        [--device cuda]
+
+Both run on a ``Cluster`` of R3's 64 raylets (``build_problem(
+default_rng(7))``'s first 64 node shapes, ``profile_cluster``) under
+``init``, at the config's heartbeat (100 ms, SUSPECT at 15 missed beats,
+DEAD at 30).  Each is a function ``chip_smoke.py`` calls, and each raises
+on a wrong value.
+
+* ``heartbeat_death`` (H1): four STRICT_SPREAD groups of four
+  ``{"CPU": 1}`` bundles; 64 tasks, each returning an 8 MiB array made
+  from its index, soft-pinned one to a raylet and held by the driver
+  unread (so the only copy of each is on its raylet); then a burst of
+  20,000 no-op tasks in R3's classes (those no node fits cut, as in
+  C2), and, a quarter into the burst, ``kill_node`` of 8 raylets other
+  than the head: one bundle node of each group and four more from a
+  seeded draw.  Checks: each victim published SUSPECT, then DEAD, within
+  ``num_heartbeats_timeout`` periods plus two of its kill; a device solve
+  ran under a mask, and none placed a lease on a node its view masked
+  when it started (``ClusterTaskManager.mask_stats``); every task
+  returned its index, through retries; every array is byte-equal, the
+  lost ones recomputed from lineage; every group that had a bundle on a
+  victim is CREATED again, on live nodes; no survivor counted an error.
+  Reported: ms from each kill to SUSPECT and to DEAD, from the last
+  death to the last array read back and to the last group CREATED
+  again, the batched ticks (every raylet's, the victims' too) and the
+  device solves under a mask.
+* ``gcs_restart`` (H2): G1's 16 groups and its 32-bundle SPREAD group on
+  a GCS journaled to a file; one group's table row is deleted (an
+  outage that ate its removal), then ``restart_gcs``.  Checks: every
+  other group is CREATED on the bundle nodes it had; the deleted
+  group's bundles are released on its raylets; 1,000 tasks into the
+  groups' bundles all run on their bundle's node and see their group,
+  their leases placed by the raylets' batched ticks.  Reported: the
+  restart's ms (shutdown, reload, reconcile) and the journal's bytes.
+
+``device="cpu"`` rehearses a phase on the plain class fill.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+
+from ray_tpu_torch.tools.profile_cluster import (N_RAYLETS, bench_names,
+                                                 row_dict)
+from ray_tpu_torch.tools.profile_groups import G1_GROUPS, _Runtime, _where
+from ray_tpu_torch.tools.profile_tasks import (_check_clean, _index,
+                                              _Members, _options,
+                                              _tick_totals,
+                                              feasible_classes)
+
+H1_TASKS = 20_000
+H1_ARRAYS = 64
+# 2**20 float64: 8 MiB.
+H1_ARRAY_ELEMS = 1 << 20
+H1_VICTIMS = 8
+H1_GROUPS = 4
+H2_TASKS = 1_000
+WALL_S = 600.0
+
+
+def _array(seed):
+    return np.random.default_rng(seed).standard_normal(H1_ARRAY_ELEMS)
+
+
+def _r3_cluster(env):
+    """R3's 64 raylets on ``env``'s cluster; (node shapes, demands)."""
+    from ray_tpu_torch.scheduler import bench as sb
+    rng = np.random.default_rng(7)
+    _, total, demand, _, _, _ = sb.build_problem(rng)
+    names = bench_names(total)
+    for i in range(N_RAYLETS):
+        env.cluster.add_node(row_dict(names, total[i]), node_name=f"r3-{i}")
+    return names, total, demand
+
+
+def _wait(pred, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what} never held")
+        time.sleep(0.005)
+
+
+def _ms(t):
+    return t * 1e3
+
+
+def heartbeat_death(device="cuda", n_tasks=H1_TASKS, n_arrays=H1_ARRAYS,
+                    n_victims=H1_VICTIMS):
+    """H1 (module docstring).  Returns its numbers."""
+    from ray_tpu_torch._private.config import get_config
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.gcs.pubsub import NODE_CHANNEL
+    from ray_tpu_torch.util import placement_group, placement_group_table
+    from ray_tpu_torch.util.scheduling_strategies import \
+        NodeAffinitySchedulingStrategy
+    env = _Runtime(device)
+    try:
+        names, total, demand = _r3_cluster(env)
+        env.start()
+        rt, cluster = env.rt, env.cluster
+        gcs = cluster.gcs
+        raylets = cluster.raylets()
+        head = cluster.head_node
+        published = {}
+        gcs.publisher.subscribe(
+            NODE_CHANNEL, None, lambda key, msg: published.setdefault(
+                key, []).append((msg["state"], time.monotonic())))
+
+        pgs = []
+        for _ in range(H1_GROUPS):
+            pg = placement_group([{"CPU": 1}] * 4, strategy="STRICT_SPREAD")
+            if not pg.wait(60):
+                raise AssertionError(f"H1: a group was not created: "
+                                     f"{placement_group_table(pg)}")
+            pgs.append(pg)
+        homes = [placement_group_table(pg)["bundle_nodes"] for pg in pgs]
+
+        rng = np.random.default_rng(12)
+        victims = []
+        for bundle_nodes in homes:
+            for i in sorted(bundle_nodes):
+                r = cluster.raylet(_node_id(bundle_nodes[i]))
+                if r is not head and r not in victims:
+                    victims.append(r)
+                    break
+        others = [r for r in raylets if r is not head and r not in victims]
+        for j in rng.permutation(len(others))[:n_victims - len(victims)]:
+            victims.append(others[int(j)])
+        victim_ids = {v.node_id for v in victims}
+
+        array = rt.remote(num_cpus=0)(_array)
+        array_refs = [array.options(
+            scheduling_strategy=NodeAffinitySchedulingStrategy(
+                raylets[j % len(raylets)].node_id.hex(), soft=True)).remote(j)
+            for j in range(n_arrays)]
+        ready, _ = rt.wait(array_refs, num_returns=n_arrays, timeout=WALL_S,
+                           fetch_local=False)
+        if len(ready) != n_arrays:
+            raise AssertionError(f"H1: {len(ready)} of {n_arrays} arrays")
+        homes_of = [cluster.object_directory.get_locations(ref.object_id())
+                    for ref in array_refs]
+        lost = [j for j, at in enumerate(homes_of) if at and at <= victim_ids]
+        core = global_worker().core_worker
+        recon0 = core.metrics["lineage_reconstructions"]
+
+        classes = rng.integers(0, 64, size=n_tasks)
+        fits = feasible_classes(total[:N_RAYLETS], demand[:64])
+        index = rt.remote(_index)
+        fns = [index.options(**_options(names, demand[c])) if fits[c]
+               else None for c in range(64)]
+        kept = [i for i in range(n_tasks) if fits[int(classes[i])]]
+        kill_at = len(kept) // 4
+        killed = {}
+        refs = []
+        t0 = time.perf_counter()
+        for j, i in enumerate(kept):
+            if j == kill_at:
+                for v in victims:
+                    killed[v.node_id] = time.monotonic()
+                    cluster.kill_node(v)
+            refs.append(fns[int(classes[i])].remote(i))
+        submit_s = time.perf_counter() - t0
+
+        period = get_config().raylet_heartbeat_period_milliseconds / 1e3
+        bound_s = (get_config().num_heartbeats_timeout + 2) * period
+        _wait(lambda: victim_ids <= set(gcs.node_manager.dead_nodes),
+              30, "H1: every victim's death")
+        to_suspect, to_dead = [], []
+        for v in victims:
+            states = published.get(v.node_id.binary(), [])
+            order = [s for s, _t in states]
+            if order[-2:] != ["SUSPECT", "DEAD"]:
+                raise AssertionError(f"H1: {v.node_name} published "
+                                     f"{order}, not SUSPECT then DEAD")
+            to_suspect.append(states[-2][1] - killed[v.node_id])
+            to_dead.append(states[-1][1] - killed[v.node_id])
+        gcs_loop = {name: {"count": st["count"], "max_ms": _ms(st["max_s"]),
+                           "mean_ms": _ms(st["total_s"] / st["count"])}
+                    for name, st in list(gcs.loop.handler_stats.items())
+                    if st["count"]}
+        if max(to_dead) > bound_s:
+            raise AssertionError(
+                f"H1: a death took {max(to_dead):.3f} s after its kill; "
+                f"bound {bound_s:.3f} s; kill to dead "
+                f"{[round(t, 3) for t in to_dead]}; GCS loop lag max "
+                f"{_ms(gcs.loop.lag_max_s):.1f} ms, handlers {gcs_loop}")
+        last_dead = max(t for s in published.values() for st, t in s
+                        if st == "DEAD")
+
+        got = rt.get(array_refs, timeout=WALL_S)
+        arrays_s = time.monotonic() - last_dead
+        wrong = [j for j, a in enumerate(got)
+                 if a.tobytes() != _array(j).tobytes()]
+        if wrong:
+            raise AssertionError(f"H1: arrays {wrong} differ")
+        reconstructed = core.metrics["lineage_reconstructions"] - recon0
+        if reconstructed < len(lost):
+            raise AssertionError(f"H1: {len(lost)} arrays lost, "
+                                 f"{reconstructed} reconstructions")
+
+        moved = [pg for pg, bundle_nodes in zip(pgs, homes)
+                 if {_node_id(n) for n in bundle_nodes.values()}
+                 & victim_ids]
+
+        def regrouped():
+            for pg in moved:
+                info = placement_group_table(pg)
+                nodes = {_node_id(n) for n in info["bundle_nodes"].values()}
+                if info["state"] != "CREATED" or nodes & victim_ids or \
+                        len(nodes) != 4:
+                    return False
+            return True
+        try:
+            _wait(regrouped, 60, "H1: the groups CREATED again")
+        except AssertionError:
+            raise AssertionError(
+                f"H1: the groups moved off the victims are "
+                f"{[placement_group_table(pg) for pg in moved]}; GCS loop "
+                f"{gcs.loop.handler_stats}") from None
+        groups_s = time.monotonic() - last_dead
+
+        values = rt.get(refs, timeout=WALL_S)
+        wall = time.perf_counter() - t0
+        if values != kept:
+            bad = sum(a != b for a, b in zip(values, kept))
+            raise AssertionError(f"H1: {bad} results differ from their "
+                                 "index")
+        out = {"raylets": len(raylets), "victims": len(victims),
+               "victim_names": [v.node_name for v in victims],
+               "tasks": len(kept), "arrays": n_arrays,
+               "arrays_lost": len(lost), "reconstructions": reconstructed,
+               "groups_moved": len(moved),
+               "kill_to_suspect_ms": [_ms(t) for t in to_suspect],
+               "kill_to_dead_ms": [_ms(t) for t in to_dead],
+               "bound_ms": _ms(bound_s),
+               "dead_to_arrays_ms": _ms(arrays_s),
+               "dead_to_created_ms": _ms(groups_s),
+               "wall_s": wall, "submit_s": submit_s,
+               "tasks_per_s": len(kept) / wall,
+               "gcs_loop": gcs_loop,
+               "gcs_loop_lag_max_ms": _ms(gcs.loop.lag_max_s),
+               "submitter": dict(core.task_submitter.submitter_stats)}
+    finally:
+        env.close()
+    # Read once every loop stopped, so that no tick is in flight: its
+    # launch would be counted and its tick and placements not yet.
+    survivors = [r for r in raylets if r.node_id not in victim_ids]
+    _, bad = _tick_totals(_Members(survivors))
+    _check_clean("H1", bad)
+    ticks, _ = _tick_totals(_Members(raylets))
+    masked_placements = sum(
+        r.cluster_task_manager.mask_stats["masked_placements"]
+        for r in survivors)
+    masked_ticks = sum(r.cluster_task_manager.mask_stats["masked_ticks"]
+                       for r in survivors)
+    if masked_placements or not masked_ticks:
+        raise AssertionError(f"H1: {masked_placements} placements on "
+                             f"masked nodes in {masked_ticks} device "
+                             "solves under a mask (none may place there, "
+                             "and one must run)")
+    out.update(batched_ticks=sum(ticks.values()),
+               masked_ticks=masked_ticks,
+               masked_placements=masked_placements)
+    return out
+
+
+def _node_id(hex_id):
+    from ray_tpu_torch._private.ids import NodeID
+    return NodeID.from_hex(hex_id)
+
+
+def gcs_restart(device="cuda", n_tasks=H2_TASKS):
+    """H2 (module docstring).  Returns its numbers."""
+    from ray_tpu_torch.util import placement_group, placement_group_table
+    from ray_tpu_torch.util.scheduling_strategies import \
+        PlacementGroupSchedulingStrategy
+    env = _Runtime(device, file_gcs=True)
+    try:
+        _r3_cluster(env)
+        env.start()
+        rt, cluster = env.rt, env.cluster
+        pgs = []
+        for strategy, n in G1_GROUPS:
+            pg = placement_group([{"CPU": 1}] * n, strategy=strategy)
+            if not pg.wait(60):
+                raise AssertionError(f"H2: a {strategy} group of {n} was "
+                                     f"not created")
+            cluster.broadcast_now()
+            pgs.append(pg)
+        before = [placement_group_table(pg)["bundle_nodes"] for pg in pgs]
+        where = rt.remote(num_cpus=1)(_where)
+        # One task a group before the restart: the function is exported
+        # to the KV that the restart reloads.
+        first = [where.options(
+            scheduling_strategy=PlacementGroupSchedulingStrategy(
+                placement_group=pg, placement_group_bundle_index=0)).remote(0)
+            for pg in pgs]
+        rt.get(first, timeout=WALL_S)
+        _wait(lambda: all(placement_group_table(pg)["state"] == "CREATED"
+                          for pg in pgs), 10, "H2: groups CREATED")
+        leaked = pgs[len(pgs) // 2]
+        holders = {_node_id(n) for n in before[len(pgs) // 2].values()}
+        journal_bytes = os.path.getsize(cluster._gcs_storage_path)
+        cluster.gcs.storage.placement_group_table.delete(leaked.id)
+        cluster.restart_gcs()
+        restart_ms = dict(cluster.restart_ms)
+
+        kept = [(pg, b) for pg, b in zip(pgs, before) if pg is not leaked]
+        for pg, bundle_nodes in kept:
+            info = placement_group_table(pg)
+            if info["state"] != "CREATED" or \
+                    info["bundle_nodes"] != bundle_nodes:
+                raise AssertionError(f"H2: after the restart a group is "
+                                     f"{info['state']} on "
+                                     f"{info['bundle_nodes']}, was on "
+                                     f"{bundle_nodes}")
+
+        def released():
+            return not any(key[0] == leaked.id
+                           for r in cluster.raylets()
+                           for key in list(r._committed_bundles) +
+                           list(r._prepared_bundles))
+        _wait(released, 10, "H2: the leaked group's release")
+        ticks0 = sum(_tick_totals(cluster)[0].values())
+        refs, expect = [], []
+        t0 = time.perf_counter()
+        for k in range(n_tasks):
+            pg, bundle_nodes = kept[k % len(kept)]
+            i = (k // len(kept)) % len(bundle_nodes)
+            refs.append(where.options(
+                scheduling_strategy=PlacementGroupSchedulingStrategy(
+                    placement_group=pg,
+                    placement_group_bundle_index=i)).remote(k))
+            expect.append((bundle_nodes[i], pg.id.hex()))
+        got = rt.get(refs, timeout=WALL_S)
+        tasks_s = time.perf_counter() - t0
+        wrong = [k for k, (g, e) in enumerate(zip(got, expect))
+                 if tuple(g) != e]
+        if wrong:
+            raise AssertionError(f"H2: {len(wrong)} of {n_tasks} tasks off "
+                                 f"their bundles, first {got[wrong[0]]} "
+                                 f"for {expect[wrong[0]]}")
+        members = _Members(cluster.raylets())
+        out = {"raylets": len(cluster.raylets()), "groups": len(pgs),
+               "groups_kept": len(kept),
+               "leaked_group_nodes": len(holders),
+               "restart_ms": restart_ms,
+               "restart_total_ms": sum(restart_ms.values()),
+               "journal_bytes": journal_bytes, "tasks": n_tasks,
+               "tasks_per_s": n_tasks / tasks_s}
+    finally:
+        env.close()
+    # Read once the loops stopped (as H1 does).
+    ticks, bad = _tick_totals(members)
+    _check_clean("H2", bad)
+    after_ticks = sum(ticks.values()) - ticks0
+    if after_ticks < 1:
+        raise AssertionError("H2: no batched tick placed the tasks after "
+                             "the restart")
+    out.update(batched_ticks_after=after_ticks,
+               batched_ticks=sum(ticks.values()))
+    return out
+
+
+PHASES = {"h1": heartbeat_death, "h2": gcs_restart}
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from ray_tpu_torch.tools.timing import card
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phase", default="both",
+                        choices=("h1", "h2", "both"))
+    parser.add_argument("--device", default="cuda",
+                        help="'cpu' rehearses on the plain class fill")
+    args = parser.parse_args(argv)
+    if args.device != "cpu":
+        if not torch.cuda.is_available():
+            raise SystemExit("profile_gcs: needs a CUDA device")
+        print(card(), flush=True)
+    names = ("h1", "h2") if args.phase == "both" else (args.phase,)
+    for name in names:
+        print(json.dumps({"phase": name.upper(),
+                          **PHASES[name](args.device)}, default=str),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

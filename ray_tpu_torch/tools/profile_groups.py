@@ -7,7 +7,7 @@
 Each phase is a function ``chip_smoke.py`` calls, and each raises on a
 wrong value:
 
-* ``groups`` (G1): ``init(_cluster=...)`` on a ``LocalCluster`` of R3's
+* ``groups`` (G1): ``init(_cluster=...)`` on a ``Cluster`` of R3's
   64 raylets (``profile_cluster``'s node shapes).  Placement groups are
   created one after another, each waited before the next: four each of
   PACK, SPREAD, STRICT_PACK and STRICT_SPREAD of four ``{"CPU": 1}``
@@ -26,7 +26,7 @@ wrong value:
   solver held, the solvers' full uploads, and the bundle solve's
   counters; no raylet may count an error.
 * ``autoscaler_loop`` (A1): a ``Monitor`` with ``FakeMultiNodeProvider``
-  on a ``LocalCluster`` with a 1-CPU head and ``tests/test_autoscaler.py``'s
+  on a ``Cluster`` with a 1-CPU head and ``tests/test_autoscaler.py``'s
   worker type (``{"CPU": 4, "bigmem": 1}``), ``max_workers`` 64.  Load:
   a burst of 2,048 tasks of 50 ms that need ``bigmem`` (64 shapes,
   0.0125-0.8 of it: each shape is a scheduling class, and the head
@@ -93,18 +93,21 @@ def _where(_index):
 
 
 class _Runtime:
-    """``init`` on a fresh ``LocalCluster`` whose node stores spill
-    under a temporary directory; ``close`` shuts both down."""
+    """``init`` on a fresh ``Cluster`` whose node stores spill
+    under a temporary directory (and whose GCS journals to a file there
+    with ``file_gcs``); ``close`` shuts both down."""
 
-    def __init__(self, device):
+    def __init__(self, device, file_gcs=False):
         import ray_tpu_torch as rt
-        from ray_tpu_torch._private.cluster import LocalCluster
+        from ray_tpu_torch._private.cluster import Cluster
         from ray_tpu_torch._private.config import initialize_config
         self.rt = rt
         self.temp_dir = tempfile.mkdtemp(prefix="ray_tpu_torch-groups-")
         self.system_config = {"temp_dir": self.temp_dir}
         initialize_config(self.system_config)
-        self.cluster = LocalCluster(device=device)
+        self.cluster = Cluster(
+            device=device, gcs_storage_path=os.path.join(
+                self.temp_dir, "gcs.bin") if file_gcs else None)
 
     def start(self):
         self.rt.init(_cluster=self.cluster,
@@ -122,11 +125,18 @@ class _Runtime:
             shutil.rmtree(self.temp_dir, ignore_errors=True)
 
 
-def _bundles_idle(rt) -> bool:
-    """Whether every bundle's formatted resources are all available."""
-    total, avail = rt.cluster_resources(), rt.available_resources()
-    return all(avail.get(k) == v for k, v in total.items()
-               if "_group_" in k)
+def _bundles_idle(cluster) -> bool:
+    """Whether every bundle's formatted resources are all available, on
+    the raylets' own ledgers (the GCS view's totals, which
+    ``cluster_resources`` reads, never gain a bundle's columns, as in the
+    reference)."""
+    for raylet in cluster.raylets():
+        res = raylet.local_resources
+        total, avail = res.to_float_dict("total"), res.to_float_dict()
+        if any(avail.get(k) != v for k, v in total.items()
+               if "_group_" in k):
+            return False
+    return True
 
 
 def groups(device="cuda"):
@@ -207,7 +217,7 @@ def groups(device="cuda"):
         # A result is sealed before its worker's lease returns: wait for
         # every bundle's resources to come back before the removal.
         deadline = time.monotonic() + 30
-        while not _bundles_idle(rt):
+        while not _bundles_idle(cluster):
             if time.monotonic() > deadline:
                 raise AssertionError("G1: bundle leases never returned")
             time.sleep(0.01)

@@ -356,11 +356,11 @@ def reconstruction(device="cuda"):
     """O4 (module docstring)."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import exceptions
-    from ray_tpu_torch._private.cluster import LocalCluster
+    from ray_tpu_torch._private.cluster import Cluster
     from ray_tpu_torch._private.worker import global_worker
     out = {}
     for pinning in (True, False):
-        cluster = LocalCluster(device=device)
+        cluster = Cluster(device=device)
         cluster.add_node({"CPU": 1.0}, node_name="head")
         rt.init(_cluster=cluster,
                 _system_config={"lineage_pinning_enabled": pinning})
@@ -487,7 +487,7 @@ def locality(device="cuda", attempts=3):
     (``two_classes``, ``r3_classes``) on the same cluster; each burst's
     solver counts are its own."""
     import ray_tpu_torch as rt
-    from ray_tpu_torch._private.cluster import LocalCluster
+    from ray_tpu_torch._private.cluster import Cluster
     from ray_tpu_torch.scheduler import bench as sb
     out = {}
     rng = np.random.default_rng(7)
@@ -498,7 +498,7 @@ def locality(device="cuda", attempts=3):
         "r3": [row_dict(names, total[i]) for i in range(N_RAYLETS)],
     }
     for key, rows in shapes.items():
-        cluster = LocalCluster(device=device)
+        cluster = Cluster(device=device)
         for i, row in enumerate(rows):
             cluster.add_node(row, node_name=f"o5-{key}-{i}")
         rt.init(_cluster=cluster)

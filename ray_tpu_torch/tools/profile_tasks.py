@@ -15,7 +15,7 @@ Every value is checked.
 
 ``cluster_tasks`` is C2, ``BASELINE.json``'s "benchmarks/scheduling.yaml:
 100k heterogeneous-resource tasks over 64 simulated nodes", through the
-real submitter: a ``LocalCluster`` of 64 raylets with R3's node shapes
+real submitter: a ``Cluster`` of 64 raylets with R3's node shapes
 (``build_problem(default_rng(7))``, its first 64 rows) under ``init``,
 and R3's 64 classes as ``.options(...)`` of one no-op function that
 returns its index, 100,000 tasks submitted from the driver.  Classes
@@ -24,6 +24,23 @@ before submitting and counted as a cut.  Every result must equal its
 index and is read once (one ``get`` of all the refs); the latency is
 from a task's submission to its return being sealed in the owner's
 memory store (a ``get_async`` callback).
+
+Since the GCS carries the task events, C2 is also E1: after the run its
+events are read from the GCS's ``TaskEventManager`` (``task_events``):
+no event may be dropped at the source, the records of submitted tasks
+tracked plus those evicted must be the tasks submitted, and every such
+record must be FINISHED after PENDING_ARGS_AVAIL, SCHEDULED,
+SUBMITTED_TO_WORKER and RUNNING, in that order, with time stamps that
+never go down (each state's first arrival; the records whose history
+holds a later straggler are counted); the stage p50 and p99 of
+``latency_summary`` are reported.  A raylet names a lease after the
+task that asked for it, and may grant it after that task ran on a
+reused lease: its SCHEDULED then lands after the task's FINISHED (a
+straggler), or after the finished record was evicted, where it opens a
+record of its own with no PENDING_ARGS_AVAIL and no end (a late
+grant).  The reference does the same; late grants are counted apart,
+and each must name a submitted task and hold no state but those a
+raylet or a worker emits.
 
 Both report the raylets' batched ticks and ``class_fill`` launches and
 raise when a tick fell back or a device solve raised.  With
@@ -85,6 +102,17 @@ def _tick_totals(cluster):
         bad["solver_fallbacks"] += solver.stats["fallbacks"] if solver \
             else 0
     return ticks, bad
+
+
+class _Members:
+    """A stand-in cluster whose ``raylets()`` are the given ones (a
+    cluster's own list empties as its raylets shut down)."""
+
+    def __init__(self, raylets):
+        self._raylets = list(raylets)
+
+    def raylets(self):
+        return list(self._raylets)
 
 
 def _check_clean(name, bad):
@@ -149,22 +177,83 @@ def single_node(device="cuda", n_tasks=10_000, n_latency=2_000,
         if values != list(range(n_get)):
             raise AssertionError(f"C1: a get of {n_get} refs is wrong")
 
-        ticks, bad = _tick_totals(cluster)
-        _check_clean("C1", bad)
         head = cluster.head_node
-        return {"num_cpus": num_cpus, "tasks": n_tasks,
-                "tasks_per_s": tasks_s, "latency_p50_ms": p50,
-                "latency_p99_ms": p99, "args": n_args, "args_s": args_s,
-                "returns": n_returns, "returns_s": returns_s,
-                "get_many": n_get, "get_many_s": get_s,
-                "batched_ticks": ticks[head.node_name],
-                "busy_ticks": head.cluster_task_manager.tick_stats[
-                    "busy_ticks"],
-                "launches": cf.class_fill.launches - launches0,
-                "lease_stats": dict(head.lease_stats),
-                "peak_workers": head.worker_pool.peak_workers, **bad}
+        members = _Members(cluster.raylets())
+        out = {"num_cpus": num_cpus, "tasks": n_tasks,
+               "tasks_per_s": tasks_s, "latency_p50_ms": p50,
+               "latency_p99_ms": p99, "args": n_args, "args_s": args_s,
+               "returns": n_returns, "returns_s": returns_s,
+               "get_many": n_get, "get_many_s": get_s,
+               "lease_stats": dict(head.lease_stats),
+               "peak_workers": head.worker_pool.peak_workers}
     finally:
         rt.shutdown()
+    ticks, bad = _tick_totals(members)
+    _check_clean("C1", bad)
+    out.update(batched_ticks=ticks[head.node_name],
+               busy_ticks=head.cluster_task_manager.tick_stats["busy_ticks"],
+               launches=cf.class_fill.launches - launches0, **bad)
+    return out
+
+
+LIFECYCLE = ("PENDING_ARGS_AVAIL", "SCHEDULED", "SUBMITTED_TO_WORKER",
+             "RUNNING", "FINISHED")
+
+
+def task_events(cluster, task_ids, name, timeout=60.0):
+    """E1's checks of the GCS's task events after the tasks ``task_ids``
+    (hex) ran to their end (module docstring); raises AssertionError on
+    a dropped event, a missing record, a record of an unknown task or a
+    lifecycle out of order.  Returns the counts and the stage p50/p99 in
+    ms."""
+    from ray_tpu_torch.gcs.task_events import STATE_ORDER, flushed_manager
+    ids = set(task_ids)
+    late_states = {"SCHEDULED", "SUBMITTED_TO_WORKER", "RUNNING"}
+    deadline = time.monotonic() + timeout
+    while True:
+        mgr = flushed_manager(cluster.gcs)
+        records = mgr.tasks()
+        evicted = mgr.evicted
+        opened = [r for r in records if "PENDING_ARGS_AVAIL" in r["state_ts"]]
+        late = [r for r in records
+                if "PENDING_ARGS_AVAIL" not in r["state_ts"]]
+        if len(opened) + evicted == len(ids) and \
+                all(r["state"] == "FINISHED" for r in opened):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"{name}: {len(opened)} records tracked and {evicted} "
+                f"evicted for {len(ids)} tasks; states "
+                f"{sorted({str(r['state']) for r in records})}")
+        time.sleep(0.05)
+    dropped = mgr.num_dropped_at_source()
+    if dropped:
+        raise AssertionError(f"{name}: {dropped} task events dropped at "
+                             "the source")
+    unknown = [r["task_id"] for r in records if r["task_id"] not in ids]
+    if unknown:
+        raise AssertionError(f"{name}: records of tasks never submitted: "
+                             f"{unknown[:5]}")
+    for rec in late:
+        if not set(rec["state_ts"]) <= late_states:
+            raise AssertionError(f"{name}: task {rec['task_id']} has no "
+                                 f"PENDING_ARGS_AVAIL: {rec['events']}")
+    stragglers = 0
+    for rec in opened:
+        # The lifecycle is each state's first arrival (the manager's
+        # state_ts); a later duplicate is a straggler in the history.
+        stamps = [rec["state_ts"].get(s) for s in LIFECYCLE]
+        if None in stamps or stamps != sorted(stamps):
+            raise AssertionError(f"{name}: task {rec['task_id']}'s "
+                                 f"lifecycle is {rec['events']}")
+        order = [STATE_ORDER.index(s) for s, _ts in rec["events"]]
+        stragglers += order != sorted(order)
+    stages = {stage: {"count": row["count"], "p50_ms": row["p50_s"] * 1e3,
+                      "p99_ms": row["p99_s"] * 1e3}
+              for stage, row in mgr.latency_summary().items()}
+    return {"tracked": len(opened), "evicted": evicted,
+            "late_grants": len(late), "dropped_at_source": dropped,
+            "stragglers": stragglers, "stages": stages}
 
 
 def feasible_classes(total, demand):
@@ -183,7 +272,7 @@ def cluster_tasks(n_tasks=C2_TASKS, n_raylets=C2_RAYLETS, device="cuda"):
     """C2 (module docstring).  Returns its numbers; raises
     AssertionError on a wrong or missing value or a raylet error."""
     import ray_tpu_torch as rt
-    from ray_tpu_torch._private.cluster import LocalCluster
+    from ray_tpu_torch._private.cluster import Cluster
     from ray_tpu_torch._private.worker import global_worker
     from ray_tpu_torch.ops import class_fill as cf
     from ray_tpu_torch.scheduler import bench as sb
@@ -193,7 +282,7 @@ def cluster_tasks(n_tasks=C2_TASKS, n_raylets=C2_RAYLETS, device="cuda"):
     names = bench_names(total)
     fits = feasible_classes(total[:n_raylets], demand[:64])
     keep = np.array([fits[int(c)] for c in classes])
-    cluster = LocalCluster(device=device)
+    cluster = Cluster(device=device)
     for i in range(n_raylets):
         cluster.add_node(row_dict(names, total[i]), node_name=f"c2-{i}")
     rt.init(_cluster=cluster)
@@ -230,35 +319,42 @@ def cluster_tasks(n_tasks=C2_TASKS, n_raylets=C2_RAYLETS, device="cuda"):
             raise AssertionError("C2: a result was read before it was "
                                  "sealed")
         p50, p99 = _percentiles((ready - submitted) * 1e3)
-        ticks, bad = _tick_totals(cluster)
-        _check_clean("C2", bad)
-        spills = sum(r.cluster_task_manager.tick_stats["spillbacks"]
-                     for r in cluster.raylets())
-        rejected = sum(r.cluster_task_manager.tick_stats[
-            "spillback_rejections"] for r in cluster.raylets())
-        return {"raylets": n_raylets, "tasks": n_tasks,
-                "submitted": len(kept),
-                "dropped_infeasible": int(n_tasks - len(kept)),
-                "dropped_share": float(1 - len(kept) / n_tasks),
-                "dropped_classes": int(sum(not fits[c]
-                                           for c in set(classes.tolist()))),
-                "cpus": float(total[:n_raylets, 0].sum()),
-                "tasks_per_s": len(kept) / wall, "wall_s": wall,
-                "submit_s": submit_s, "latency_p50_ms": p50,
-                "latency_p99_ms": p99,
-                "launches": cf.class_fill.launches - launches0,
-                "batched_ticks": {k: v for k, v in ticks.items() if v},
-                "raylets_with_batched_ticks": sum(v > 0 for v in
-                                                  ticks.values()),
-                "spillbacks": spills, "spillback_rejections": rejected,
-                "submitter": dict(core.task_submitter.submitter_stats),
-                # Each pool's peak, summed: at least the peak of worker
-                # threads alive at once.
-                "peak_workers": sum(r.worker_pool.peak_workers
-                                    for r in cluster.raylets()),
-                **bad}
+        events = task_events(cluster, [ref.task_id().hex() for ref in refs],
+                             "E1")
+        out = {"raylets": n_raylets, "tasks": n_tasks,
+               "submitted": len(kept),
+               "dropped_infeasible": int(n_tasks - len(kept)),
+               "dropped_share": float(1 - len(kept) / n_tasks),
+               "dropped_classes": int(sum(not fits[c]
+                                          for c in set(classes.tolist()))),
+               "cpus": float(total[:n_raylets, 0].sum()),
+               "tasks_per_s": len(kept) / wall, "wall_s": wall,
+               "submit_s": submit_s, "latency_p50_ms": p50,
+               "latency_p99_ms": p99,
+               "submitter": dict(core.task_submitter.submitter_stats),
+               "events": events}
+        members = _Members(cluster.raylets())
     finally:
         rt.shutdown()
+    # Read once the loops stopped: a lease request that outlived its task
+    # may still be ticking when the last result arrives, its launch
+    # counted and its tick not yet.
+    ticks, bad = _tick_totals(members)
+    _check_clean("C2", bad)
+    raylets = members.raylets()
+    out.update(
+        launches=cf.class_fill.launches - launches0,
+        batched_ticks={k: v for k, v in ticks.items() if v},
+        raylets_with_batched_ticks=sum(v > 0 for v in ticks.values()),
+        spillbacks=sum(r.cluster_task_manager.tick_stats["spillbacks"]
+                       for r in raylets),
+        spillback_rejections=sum(r.cluster_task_manager.tick_stats[
+            "spillback_rejections"] for r in raylets),
+        # Each pool's peak, summed: at least the peak of worker threads
+        # alive at once.
+        peak_workers=sum(r.worker_pool.peak_workers for r in raylets),
+        **bad)
+    return out
 
 
 def _profiled(torch, phase):

@@ -5,7 +5,7 @@ A port of ``ray_tpu.util.placement_group`` (reference
 strategy)``, ``PlacementGroup.ready()``/``wait()``,
 ``remove_placement_group``, ``get_placement_group`` (by name),
 ``placement_group_table`` and ``get_current_placement_group``, over the
-placement-group manager of the driver's ``LocalCluster``.
+placement-group manager of the driver's ``Cluster``.
 
     pg = placement_group([{"CPU": 1}, {"CPU": 1}], strategy="SPREAD")
     pg.wait(10)
@@ -24,7 +24,7 @@ from ray_tpu_torch.scheduler.resources import ResourceRequest
 
 
 def _manager():
-    return worker_mod.global_worker().cluster.placement_group_manager
+    return worker_mod.global_worker().cluster.gcs.placement_group_manager
 
 
 def _ready_probe():
@@ -85,7 +85,7 @@ def placement_group(bundles: List[Dict[str, float]], strategy: str = "PACK",
     gcs_pg = GcsPlacementGroup(
         pg_id, [ResourceRequest(b) for b in bundles], strategy,
         name=name, lifetime=lifetime or "")
-    w.cluster.placement_group_manager.create_placement_group(gcs_pg)
+    w.cluster.gcs.placement_group_manager.create_placement_group(gcs_pg)
     return PlacementGroup(pg_id)
 
 

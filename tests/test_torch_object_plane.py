@@ -5,7 +5,7 @@ on the CPU.
 
 Each case runs once on a cluster of the JAX package (its ``Cluster``
 under ``ray_tpu.init(_cluster=...)``) and once on the port's
-(``LocalCluster(device="cpu")`` under ``ray_tpu_torch.init``), built
+(``Cluster(device="cpu")`` under ``ray_tpu_torch.init``), built
 the same way from the same numpy seed, and the two outcomes must be
 equal: the values, the error's type and message (ids masked, the
 package's name read as one), or the invariant the JAX package's own
@@ -130,9 +130,9 @@ class _Env:
         self.temp_dir = tempfile.mkdtemp(prefix=f"{name}-")
         system_config = {"temp_dir": self.temp_dir, **(system_config or {})}
         if name == PORT:
-            from ray_tpu_torch._private.cluster import LocalCluster
+            from ray_tpu_torch._private.cluster import Cluster
             self._config_module().initialize_config(system_config)
-            self.cluster = LocalCluster(device=device)
+            self.cluster = Cluster(device=device)
             self.cluster.add_node({"CPU": float(head_cpus)},
                                   node_name="head",
                                   object_store_memory=object_store_memory)
@@ -605,9 +605,9 @@ def test_unrecoverable_loss_names_the_cause():
 
 
 def _o5_burst(one_class):
-    from ray_tpu_torch._private.cluster import LocalCluster
+    from ray_tpu_torch._private.cluster import Cluster
     from ray_tpu_torch.tools import profile_objects as po
-    cluster = LocalCluster(device="cpu")
+    cluster = Cluster(device="cpu")
     cluster.add_node({"CPU": 4.0}, node_name="a")
     home = cluster.add_node({"CPU": 4.0, "b": 1.0}, node_name="b")
     ray_tpu_torch.init(_cluster=cluster)

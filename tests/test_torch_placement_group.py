@@ -1,9 +1,9 @@
 """The port's placement groups (``ray_tpu_torch.util.placement_group``,
-the GCS-side ``GcsPlacementGroupManager`` on ``LocalCluster`` and the
+the GCS-side ``GcsPlacementGroupManager`` on ``Cluster`` and the
 raylet's bundle two-phase commit) against the JAX package's, on the CPU.
 
 Each end-to-end case runs once on a JAX ``Cluster`` under
-``ray_tpu.init(_cluster=...)`` and once on a ``LocalCluster(device="cpu")``
+``ray_tpu.init(_cluster=...)`` and once on a ``Cluster(device="cpu")``
 under ``ray_tpu_torch.init(_cluster=...)``, each with a fresh
 ``temp_dir``, on nodes of the same totals and names; the two outcomes
 (values with node ids read as node names, or the error's type and
@@ -181,10 +181,10 @@ def test_refused_prepare_rolls_back_matches_jax():
 def _bare_raylets():
     """A raylet of each package, the same totals, outside any driver."""
     from ray_tpu._private.cluster import Cluster
-    from ray_tpu_torch._private.cluster import LocalCluster
+    from ray_tpu_torch._private.cluster import Cluster as PortCluster
     jax = Cluster(initialize_head=True, head_node_args=dict(
         num_cpus=4, num_gpus=1, resources={"custom": 2}))
-    port = LocalCluster(device="cpu")
+    port = PortCluster(device="cpu")
     port.add_node(Env._totals(4, {"GPU": 1, "custom": 2}))
     return (jax, jax.head_node), (port, port.head_node)
 
@@ -381,7 +381,7 @@ def test_bundle_packing_counters_are_exported():
         assert pg.wait(10)
         text = get_metrics_registry().render_prometheus()
         w = importlib.import_module("ray_tpu_torch._private.worker")
-        loop = w.global_worker().cluster.loop
+        loop = w.global_worker().cluster.gcs.loop
         assert loop.handler_stats["pg.schedule"]["errors"] == 0
     finally:
         ray_tpu_torch.shutdown()

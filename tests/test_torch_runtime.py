@@ -7,7 +7,7 @@ lease requests in the same order, tick by tick
 (``tests/torch_runtime_util.py``).  Every lease must get the same reply
 from both (grant, spillback to the same node, backlog, infeasible), and
 the tick counters, the pending load and the rendered scheduler series
-must be equal.  The port's raylets also run for real in a ``LocalCluster``
+must be equal.  The port's raylets also run for real in a ``Cluster``
 with ``device="cpu"``.  Tests marked ``gpu`` run the tick on the card and
 skip without one.
 """
@@ -27,7 +27,7 @@ from ray_tpu._private.config import get_config as jax_config
 from ray_tpu.scheduler import jax_backend as jb
 from ray_tpu_torch._private import cluster_task_manager as tctm
 from ray_tpu_torch._private import raylet as traylet
-from ray_tpu_torch._private.cluster import LocalCluster
+from ray_tpu_torch._private.cluster import Cluster
 from ray_tpu_torch._private.config import get_config as port_config
 from ray_tpu_torch._private.event_loop import EventLoop
 from ray_tpu_torch._private.metrics_agent import get_metrics_registry
@@ -706,7 +706,7 @@ def test_local_cluster_burst_end_to_end():
     spread over at least 3 nodes, the head's device session engaged and
     never falling back."""
     from ray_tpu_torch._private import ids, task_spec
-    cluster = LocalCluster(device="cpu")
+    cluster = Cluster(device="cpu")
     try:
         for _ in range(4):
             cluster.add_node({"CPU": 2})
@@ -866,7 +866,7 @@ def test_raylet_and_autoscaler_need_a_card_unless_told_cpu(monkeypatch):
         traylet.Raylet(None, {"CPU": 1})
     with pytest.raises(RuntimeError, match="CUDA"):
         trds.ResourceDemandScheduler({}, max_workers=1)
-    cluster = LocalCluster()
+    cluster = Cluster()
     try:
         with pytest.raises(RuntimeError, match="CUDA"):
             cluster.add_node({"CPU": 1})

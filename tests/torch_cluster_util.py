@@ -56,8 +56,8 @@ class Env:
         self._config_module().initialize_config(system_config)
         self.names = {}
         if name == PORT:
-            from ray_tpu_torch._private.cluster import LocalCluster
-            self.cluster = LocalCluster(device="cpu")
+            from ray_tpu_torch._private.cluster import Cluster
+            self.cluster = Cluster(device="cpu")
             head = self.cluster.add_node(self._totals(head_cpus, None),
                                          node_name="head")
         else:
