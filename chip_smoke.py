@@ -152,12 +152,40 @@ zeroed before each phase and read after it):
       byte-equal (the lost ones recomputed), every group that lost a
       bundle CREATED again on live nodes, no survivor error, and
       ``class_fill`` launches equal to the raylets' batched ticks;
-  H2. G1's 17 groups on a GCS journaled to a file, one group's table
-      row deleted, ``restart_gcs``: every other group CREATED on the
-      same bundle nodes, the deleted group's bundles released, 1,000
-      tasks into bundles right, their leases through the batched ticks;
-      the restart's ms (shutdown, reload, reconcile) and the journal's
-      bytes;
+  H2. G1's 17 groups and 64 actors (16 named) on a GCS journaled to a
+      file, one group's table row deleted and one actor's worker killed
+      unknown to the GCS, ``restart_gcs``: every other group CREATED on
+      the same bundle nodes, the deleted group's bundles released, every
+      other actor re-attached ALIVE with its count going on, every named
+      one found by ``get_actor``, the lost one ALIVE again after one
+      restart, 1,000 tasks into bundles right, their leases through the
+      batched ticks; the restart's ms (shutdown, reload, reconcile and
+      its actor share) and the journal's bytes;
+
+actors on R3's 64 raylets under ``init``
+(``ray_tpu_torch.tools.profile_actors``; the launch count zeroed before
+each phase and read after it, and equal to the raylets' batched ticks,
+at least one):
+
+  K1. 1,024 actors in one burst (768 default, 256 holding a shape drawn
+      from R3's feasible classes, those the cluster cannot hold cut and
+      counted), 64 named, 64 with ``max_concurrency=4``, 64 with
+      concurrency groups: every actor ALIVE, named ones found, four
+      calls of a concurrent actor sharing an instant, a blocked ``io``
+      call stalling no other group; 64 calls on every actor returning
+      its running count in order, 1,000 tasks calling through a passed
+      handle, 320 actors killed: ``available_resources()`` back to its
+      value before the burst and their calls ``ActorDiedError``;
+      create-to-ALIVE p50/p99, actors ALIVE/s, calls/s, call p50/p99,
+      the GCS loop's actor handlers and lag, peak worker threads;
+  K2. 512 SPREAD actors (256 ``max_restarts=1, max_task_retries=1``,
+      256 ``max_restarts=0``), 16 calls each with 2,000 tasks in R3's
+      classes among them, and 8 raylets killed a quarter in: no actor
+      restarted while its node was only SUSPECT, each restartable victim
+      ALIVE again once, reconstructed, on a live node, each mortal one
+      DEAD with ``ActorDiedError``, every other actor's counts exact, no
+      call sealed from a killed node's thread; ms from kill to DEAD and
+      from the last DEAD to the last actor ALIVE again, calls failed;
 
 and the transformer's forward pass (``Transformer``) at the width of
 ``bench_model.py``'s single-chip model (vocab 32,000, d_model 1024, 16
@@ -1017,13 +1045,82 @@ def phase_gcs_restart(cf):
     log(f"[H2] {out['groups_kept']} of {out['groups']} groups CREATED on "
         f"their bundle nodes after restart_gcs, the deleted group's "
         f"bundles released on its {out['leaked_group_nodes']} node(s); "
-        f"restart {out['restart_total_ms']:.1f} ms (shutdown "
+        f"{out['actors'] - 1} live actors re-attached ALIVE and counting "
+        f"on, {out['named']} named ones found, the one whose worker died "
+        f"in the outage ALIVE again after one restart; restart "
+        f"{out['restart_total_ms']:.1f} ms (shutdown "
         f"{r['shutdown']:.1f}, reload {r['reload']:.1f}, reconcile "
-        f"{r['reconcile']:.1f}); journal {out['journal_bytes']} bytes; "
+        f"{r['reconcile']:.1f}, of which actors "
+        f"{r['reconcile_actors']:.1f}); journal {out['journal_bytes']} "
+        f"bytes; "
         f"{out['tasks']} tasks into bundles right at "
         f"{out['tasks_per_s']:.0f} tasks/s, {out['batched_ticks_after']} "
         f"batched ticks after the restart; class_fill launches "
         f"{out['launches']}")
+    return out
+
+
+def phase_actors(cf):
+    """K1: ``profile_actors.actors`` on the card (its module docstring):
+    1,024 actors on R3's 64 raylets, their calls, kills and resources;
+    its checks run inside, the launches are held to the batched ticks
+    here."""
+    from ray_tpu_torch.tools import profile_actors as pa
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    cf.class_fill.launches = 0
+    out = pa.actors("cuda")
+    out["launches"] = cf.class_fill.launches
+    check_no_threads("K1")
+    if out["launches"] < 1 or out["launches"] != out["batched_ticks"]:
+        raise AssertionError(f"K1: class_fill launched {out['launches']} "
+                             f"times for {out['batched_ticks']} batched "
+                             "ticks")
+    log(f"[K1] {out['actors']} actors on {out['raylets']} raylets "
+        f"({out['default']} default, {out['held']} held, "
+        f"{out['held_cut']} of {out['held_drawn']} held draws cut): "
+        f"create to ALIVE p50 {out['create_to_alive_p50_ms']:.1f} ms p99 "
+        f"{out['create_to_alive_p99_ms']:.1f} ms, "
+        f"{out['alive_per_s']:.0f} actors ALIVE/s; {out['calls']} calls "
+        f"in order at {out['calls_per_s']:.0f} calls/s, submit to sealed "
+        f"p50 {out['call_p50_ms']:.2f} ms p99 {out['call_p99_ms']:.2f} ms; "
+        f"named, max_concurrency and concurrency groups right; "
+        f"{out['tasks']} tasks through passed handles at "
+        f"{out['tasks_per_s']:.0f}/s; {out['killed']} killed, resources "
+        f"back, their calls ActorDiedError; class_fill launches "
+        f"{out['launches']} = batched ticks; GCS actor handlers "
+        f"{out['gcs_actor_handlers']}, loop lag max "
+        f"{out['gcs_loop_lag_max_ms']:.1f} ms, the raylets' loops' "
+        f"{out['raylet_loop_lag_max_ms']:.1f} ms; threads with the actors "
+        f"{out['threads_with_actors']}, peak workers "
+        f"{out['peak_workers']}")
+    return out
+
+
+def phase_actor_faults(cf):
+    """K2: ``profile_actors.actor_faults`` on the card (its module
+    docstring): 8 of R3's 64 raylets killed under 512 actors' calls."""
+    from ray_tpu_torch.tools import profile_actors as pa
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    cf.class_fill.launches = 0
+    out = pa.actor_faults("cuda")
+    out["launches"] = cf.class_fill.launches
+    check_no_threads("K2")
+    if out["launches"] < 1 or out["launches"] != out["batched_ticks"]:
+        raise AssertionError(f"K2: class_fill launched {out['launches']} "
+                             f"times for {out['batched_ticks']} batched "
+                             "ticks")
+    ms = ", ".join(f"{x:.0f}" for x in out["kill_to_dead_ms"])
+    log(f"[K2] {out['victims']} raylets killed under {out['actors']} "
+        f"actors' {out['calls']} calls: {out['actors_on_victims']} actors "
+        f"on them, {out['restarted']} ALIVE again once each after their "
+        f"node's DEAD (none while SUSPECT), {out['buried']} DEAD with "
+        f"ActorDiedError; kill to DEAD [{ms}] ms; last DEAD to last ALIVE "
+        f"{out['dead_to_last_alive_ms']:.0f} ms; {out['calls_failed']} "
+        f"calls failed, {out['calls_system_failures']} system failures "
+        f"answered and retried or failed; no call sealed from a dead "
+        f"node's thread; class_fill launches {out['launches']} = batched "
+        f"ticks; GCS actor handlers {out['gcs_actor_handlers']}, loop lag "
+        f"max {out['gcs_loop_lag_max_ms']:.1f} ms")
     return out
 
 
@@ -2007,7 +2104,10 @@ def main() -> int:
                  "autoscaler.load_metrics", "autoscaler.node_provider",
                  "autoscaler.autoscaler", "autoscaler.monitor",
                  "autoscaler.sdk", "tools.profile_groups", "gcs.server",
-                 "gcs.task_events", "gcs.job_graph", "tools.profile_gcs"):
+                 "gcs.task_events", "gcs.job_graph", "tools.profile_gcs",
+                 "actor", "gcs.actor_manager",
+                 "_private.direct_actor_submitter",
+                 "tools.profile_actors"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
@@ -2048,6 +2148,8 @@ def main() -> int:
     a1 = phase_autoscaler_loop(cf)
     h1 = phase_heartbeat(cf)
     h2 = phase_gcs_restart(cf)
+    k1 = phase_actors(cf)
+    k2 = phase_actor_faults(cf)
     fb, fb128 = phase_flash_bwd(torch, fa, mb)
     t1 = phase_train_f32(torch, tt, fa, mb, mb.CONFIG, "train f32")
     t3f = phase_train_f32(torch, tt, fa, mb, mb.MOE_CONFIG, "moe train f32")
@@ -2102,7 +2204,7 @@ def main() -> int:
                      c2["launches"] +
                      sum(o["launches"] for o in objects.values()) +
                      g1["launches"] + a1["launches"] + h1["launches"] +
-                     h2["launches"]),
+                     h2["launches"] + k1["launches"] + k2["launches"]),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -2234,6 +2336,8 @@ def main() -> int:
                     "task_events": c2["events"],
                     "heartbeat_death": h1,
                     "gcs_restart": h2,
+                    "actors": k1,
+                    "actor_faults": k2,
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "runtime": r1["launches"],
@@ -2247,6 +2351,8 @@ def main() -> int:
                                  "autoscaler_loop": a1["launches"],
                                  "heartbeat_death": h1["launches"],
                                  "gcs_restart": h2["launches"],
+                                 "actors": k1["launches"],
+                                 "actor_faults": k2["launches"],
                                  "forward": launches_m,
                                  "moe_forward": m3["launches"],
                                  "train_forward": t2["launches"][0],

@@ -1,10 +1,11 @@
-"""PyTorch/CUDA port of ray_tpu: the task API (``init``, ``@remote``,
-``get``, ``put``, ``wait``) on thread workers of an in-process cluster,
+"""PyTorch/CUDA port of ray_tpu: the task and actor API (``init``,
+``@remote`` on functions and classes, ``get``, ``put``, ``wait``,
+``kill``, ``get_actor``) on thread workers of an in-process cluster,
 with its object plane (node stores that spill, pulls and relay between
 raylets, lineage reconstruction);
 placement groups (``ray_tpu_torch.util``) and the autoscaler's loop
 (``ray_tpu_torch.autoscaler``); the GCS (``ray_tpu_torch.gcs``: storage,
-pubsub, the node, heartbeat, resource, job and KV managers, task
+pubsub, the node, heartbeat, resource, job, KV and actor managers, task
 events) under the in-process ``Cluster``;
 the batched scheduling tick and its placement-group and sinkhorn solves;
 the raylet's scheduling plane around the tick (``Raylet``, an in-process
@@ -24,9 +25,9 @@ from ray_tpu_torch._private.cluster import Cluster
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.raylet import Raylet
 from ray_tpu_torch._private.worker import (available_resources,
-                                           cluster_resources, get, init,
-                                           is_initialized, nodes, put,
-                                           shutdown, wait)
+                                           cluster_resources, get,
+                                           get_actor, init, is_initialized,
+                                           kill, nodes, put, shutdown, wait)
 from ray_tpu_torch.autoscaler.resource_demand_scheduler import \
     ResourceDemandScheduler
 from ray_tpu_torch.models import (Transformer, TransformerConfig, forward,
@@ -44,15 +45,16 @@ __all__ = ["BatchSolver", "DeviceRuntimeSolver", "Cluster",
            "MeshConfig", "ObjectRef", "Raylet", "ResourceDemandScheduler",
            "Transformer", "TransformerConfig", "available_resources",
            "build_mesh", "cluster_resources", "exceptions", "forward", "get",
-           "get_runtime_context", "infer_mesh_config", "init", "init_params",
-           "is_initialized", "loss_fn", "make_train_state",
-           "make_train_step", "nodes", "param_specs", "put", "remote",
+           "get_actor", "get_runtime_context", "infer_mesh_config", "init",
+           "init_params", "is_initialized", "kill", "loss_fn",
+           "make_train_state", "make_train_step", "nodes",
+           "param_specs", "put", "remote",
            "shutdown", "single_device_mesh", "util", "wait"]
 
 
 def remote(*args, **kwargs):
-    """The ``@remote`` decorator for functions (reference
-    worker.py:2221)::
+    """The ``@remote`` decorator (reference worker.py:2221), for
+    functions and classes (actors)::
 
         @ray_tpu_torch.remote
         def f(x): ...
@@ -60,17 +62,17 @@ def remote(*args, **kwargs):
         @ray_tpu_torch.remote(num_cpus=2, max_retries=3)
         def g(x): ...
 
-    Classes (actors) are not ported yet (ROADMAP A.4b.5) and raise.
+        @ray_tpu_torch.remote(max_restarts=1)
+        class Counter: ...
     """
     import inspect
 
+    from ray_tpu_torch.actor import make_actor_class
     from ray_tpu_torch.remote_function import RemoteFunction
 
     def make(target, options):
         if inspect.isclass(target):
-            raise NotImplementedError(
-                "@remote on a class: actors are not ported yet "
-                "(ROADMAP A.4b.5)")
+            return make_actor_class(target, options)
         if not callable(target):
             raise TypeError("@remote target must be a function or class")
         return RemoteFunction(target, options)

@@ -13,7 +13,9 @@ directory forgets its copies and the core worker reconstructs the
 objects that lost their last one.  ``remove_node`` stops a raylet
 gracefully (it unregisters, and its death is delivered at once);
 ``restart_gcs`` kills the GCS and starts another over the same file
-store, which reconciles against the raylets still running.
+store, which reconciles against the raylets still running (its actors
+re-attached to their workers), and moves the driver's actor queues to
+it.  A node's actors restart or die when its death is published.
 
     cluster = Cluster(device="cpu")          # "cuda" by default
     head = cluster.add_node({"CPU": 4})
@@ -163,7 +165,8 @@ class Cluster:
         reconcile it against the raylets still running (the surface of
         ``tests/test_gcs_fault_tolerance.py``).  Needs
         ``gcs_storage_path``: the memory store dies with its GCS.  The
-        three steps' ms are kept in ``restart_ms``."""
+        three steps' ms are kept in ``restart_ms``, with the actors'
+        share of the reconcile (``reconcile_actors``)."""
         if self._gcs_storage_path is None:
             raise ValueError("restart_gcs requires gcs_storage_path "
                              "(the in-memory store dies with the GCS)")
@@ -175,9 +178,13 @@ class Cluster:
         self.gcs.subscribe_node_death(self._on_node_death)
         t2 = time.perf_counter()
         self.gcs.reconcile(self.raylets())
+        if self.core_worker is not None:
+            self.core_worker.actor_submitter.on_gcs_restart()
         self.restart_ms = {"shutdown": (t1 - t0) * 1e3,
                            "reload": (t2 - t1) * 1e3,
-                           "reconcile": (time.perf_counter() - t2) * 1e3}
+                           "reconcile": (time.perf_counter() - t2) * 1e3,
+                           "reconcile_actors":
+                               self.gcs.reconcile_ms["actors"]}
         return self.gcs
 
     def shutdown(self) -> None:

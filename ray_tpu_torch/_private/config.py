@@ -2,21 +2,22 @@
 
 A copy of the fields of ``ray_tpu._private.config.Config`` that the
 ported modules read, with the same names and defaults: the scheduler
-fields, the placement-group and autoscaler packing fields, the knobs
-of the raylet's scheduling plane (event loop, wakeup debounce, worker
-pool) and those of the GCS (storage, resource broadcast, heartbeat,
-task events and the job graph) and of the task path (the submitter's
-leases, the owner's memory store, retries, lineage, the thread workers'
-start slots) and those of the object plane (the node store, spilling,
-transfers and relay, lineage reconstruction).  Three values differ by
-design: ``scheduler_backend`` names the device backend ``"torch"`` where
-the reference says ``"jax"``; ``use_native_object_store`` is False, as
-the native shared-memory segment is not ported (ROADMAP A.4b.2b) and
-True raises; ``temp_dir``, where the node stores spill, is the port's own
-directory under the process's temporary directory.  The rest of that
-config belongs to modules the port does not have yet: the wire fetch's
-``object_transfer_pipeline_depth`` and ``object_transfer_admission_wait_s``
-come with the cross-process fetch.
+fields, the placement-group and autoscaler packing fields, the knobs of
+the raylet's scheduling plane (event loop, wakeup debounce, worker pool)
+and those of the GCS (storage, resource broadcast, heartbeat, task
+events and the job graph, the actor scheduler's switch) and of the task
+path (the submitter's leases, the owner's memory store, retries,
+lineage, the thread workers' start slots) and those of the object plane
+(the node store, spilling, transfers and relay, lineage reconstruction).
+Three values differ by design: ``scheduler_backend`` names the device
+backend ``"torch"`` where the reference says ``"jax"``;
+``use_native_object_store`` is False, as the native shared-memory
+segment is not ported (ROADMAP A.4b.2b) and True raises; ``temp_dir``,
+where the node stores spill, is the port's own directory under the
+process's temporary directory. The rest of that config belongs to
+modules the port does not have yet: the wire fetch's
+``object_transfer_pipeline_depth`` and
+``object_transfer_admission_wait_s`` come with the cross-process fetch.
 """
 
 from __future__ import annotations
@@ -61,6 +62,14 @@ class Config:
     #: schedules the tick this many ms out, and further wakeups inside
     #: the window fold into that one tick.  0 = post the tick at once.
     scheduler_wakeup_debounce_ms: float = 1.0
+    #: GCS-side actor scheduling (ray_config_def.h:463): the GCS picks
+    #: an actor's node on its own view, where by default it forwards the
+    #: creation lease to a raylet, whose tick places it.
+    gcs_actor_scheduling_enabled: bool = False
+    #: Seed of the ``random.Random`` the GCS actor manager draws a
+    #: creation's raylet from (None: seeded by the OS).  The reference
+    #: draws from the module-level ``random``.
+    actor_scheduling_seed: Optional[int] = None
 
     # ------ lease protocol (the direct task submitter) ------
     #: Max lease requests in flight per scheduling class

@@ -15,14 +15,19 @@ An object above ``max_direct_call_object_size`` (100 KiB) goes to the
 local raylet's node store and the object directory, with an
 ``InPlasmaMarker`` in the owner's memory store for a task's return; a
 literal argument above ``task_args_inline_bytes_limit`` is promoted to
-such an object.  Actors (``create_actor``, ``submit_actor_task``) wait
-for the actors item, A.4b.5, and with them owner-death invalidation
-(``fail_owned_object``); a CUDA tensor as an object waits for the
-device-object plane (A.5); the tracing spans and flight recorder of the
-reference belong to the debug planes (A.4b.7).  The task events of the
-submit (PENDING_ARGS_AVAIL, with the parent and the argument ids) and of
-a reconstruction (RECONSTRUCTING) go to the GCS's buffer
-(``gcs.task_events``).
+such an object.  Actors: ``create_actor`` (core_worker.cc:1709)
+registers the actor with the GCS's actor manager and pins the creation
+arguments until the actor is DEAD (a restart runs the creation task
+again), and ``submit_actor_task`` (:1940) hands a method to the
+``actor_submitter``; an actor task's returns and an actor's creation are
+never reconstructed from lineage (actor state is not reconstructable).
+Owner-death invalidation (``fail_owned_object``) comes with the process
+workers whose death calls it (ROADMAP A.4b.9); a CUDA tensor as an object
+waits for the device-object plane (A.5); the tracing spans and flight
+recorder of the reference belong to the debug planes (A.4b.7).  The task
+events of the submit (PENDING_ARGS_AVAIL, with the parent and the
+argument ids) and of a reconstruction (RECONSTRUCTING) go to the GCS's
+buffer (``gcs.task_events``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from ray_tpu_torch import exceptions
 from ray_tpu_torch._private import worker_context
 from ray_tpu_torch._private.config import get_config
+from ray_tpu_torch._private.direct_actor_submitter import \
+    DirectActorTaskSubmitter
 from ray_tpu_torch._private.direct_task_submitter import DirectTaskSubmitter
 from ray_tpu_torch._private.function_manager import FunctionManager
 from ray_tpu_torch._private.ids import JobID, ObjectID, TaskID, WorkerID
@@ -48,6 +55,7 @@ from ray_tpu_torch._private.reference_counter import ReferenceCounter
 from ray_tpu_torch._private.serialization import serialize
 from ray_tpu_torch._private.task_manager import TaskManager
 from ray_tpu_torch._private.task_spec import TaskArg, TaskSpec
+from ray_tpu_torch.gcs import pubsub as pubsub_mod
 from ray_tpu_torch.gcs import task_events
 
 
@@ -74,12 +82,14 @@ class CoreWorker:
         self.task_manager = TaskManager(self)
         self.function_manager = FunctionManager(cluster)
         self.task_submitter = DirectTaskSubmitter(self)
+        self.actor_submitter = DirectActorTaskSubmitter(self)
         self.driver_task_id = TaskID.for_driver(job_id)
         self._put_counter = 0
         self._put_lock = threading.Lock()
         self.metrics: Dict[str, float] = {"tasks_finished": 0,
                                           "task_exec_seconds": 0.0,
                                           "tasks_submitted": 0,
+                                          "actor_tasks_submitted": 0,
                                           "lineage_reconstructions": 0}
         # Per-creating-task reconstruction state (attempts and the
         # exponential-backoff gate).
@@ -456,6 +466,51 @@ class CoreWorker:
         return [ObjectRef(oid, owner_id=self.worker_id)
                 for oid in spec.return_ids]
 
+    def submit_actor_task(self, spec: TaskSpec,
+                          holders=()) -> List[ObjectRef]:
+        self.task_manager.add_pending_task(spec)
+        del holders
+        self.metrics["actor_tasks_submitted"] += 1
+        task_events.emit(self.cluster, spec.task_id,
+                         task_events.PENDING_ARGS_AVAIL,
+                         name=spec.function_name,
+                         job_id=spec.job_id.hex(),
+                         task_type=spec.task_type,
+                         **self._provenance(spec))
+        self.actor_submitter.submit(spec)
+        return [ObjectRef(oid, owner_id=self.worker_id)
+                for oid in spec.return_ids]
+
+    def create_actor(self, creation_spec: TaskSpec, name: str = "",
+                     namespace: str = "", detached: bool = False):
+        from ray_tpu_torch.gcs.actor_manager import GcsActor
+
+        # The creation arguments (object arguments and the refs inside
+        # inlined ones) must outlive the actor, not the creation task:
+        # every restart runs the pinned creation spec again.  Released
+        # when the actor is DEAD.
+        pinned = creation_spec.arg_object_ids() + \
+            list(creation_spec.borrowed_ids)
+        if pinned:
+            self.reference_counter.add_submitted_task_refs(pinned)
+            released = threading.Event()
+
+            def on_update(_key, info, ids=tuple(pinned)):
+                if info.get("state") == "DEAD" and not released.is_set():
+                    released.set()
+                    self.reference_counter.remove_submitted_task_refs(
+                        list(ids))
+
+            self.cluster.gcs.publisher.subscribe(
+                pubsub_mod.ACTOR_CHANNEL, creation_spec.actor_id.binary(),
+                on_update)
+        actor = GcsActor(creation_spec.actor_id, creation_spec, name=name,
+                         namespace=namespace,
+                         max_restarts=creation_spec.max_restarts,
+                         detached=detached)
+        self.cluster.gcs.actor_manager.register_actor(actor)
+        return actor
+
     # ---- recovery (object_recovery_manager.cc) -------------------------
     def recover_object(self, object_id: ObjectID, _depth: int = 0) -> bool:
         """Resubmit the creating task from pinned lineage.
@@ -477,6 +532,8 @@ class CoreWorker:
             return False
         if self.task_manager.is_pending(spec.task_id):
             return True  # already being recomputed
+        if spec.is_actor_task() or spec.is_actor_creation():
+            return False  # actor state is not reconstructable
         now = time.monotonic()
         with self._recon_lock:
             st = self._reconstructions.get(spec.task_id)
@@ -525,6 +582,9 @@ class CoreWorker:
             parts.append("lineage=not pinned (cannot reconstruct; "
                          "check lineage_pinning_enabled / "
                          "max_lineage_bytes)")
+        elif spec.is_actor_task() or spec.is_actor_creation():
+            parts.append(f"lineage={spec.function_name} is an actor "
+                         "task (actor state is not reconstructable)")
         else:
             with self._recon_lock:
                 st = self._reconstructions.get(spec.task_id)

@@ -1,23 +1,26 @@
 """Task execution on a worker thread.
 
-A port of ``ray_tpu._private.executor`` for the PyTorch port, normal
-tasks only (reference ``CoreWorker::ExecuteTask``, core_worker.cc:2255
--> ``execute_task``, _raylet.pyx:481): materialize the arguments (an
-object argument through ``CoreWorker.get_for_executor``: the node store,
-a pull, or the owner's memory store), load the function from the
-cluster's function table, run it, store the returns (in the owner's
-memory store, or above 100 KiB in the node's store).
+A port of ``ray_tpu._private.executor`` for the PyTorch port (reference
+``CoreWorker::ExecuteTask``, core_worker.cc:2255 -> ``execute_task``,
+_raylet.pyx:481): materialize the arguments (an object argument through
+``CoreWorker.get_for_executor``: the node store, a pull, or the owner's
+memory store), then run the task by its type: a normal task loads the
+function from the cluster's function table, runs it and stores the
+returns (in the owner's memory store, or above 100 KiB in the node's
+store); an actor's creation task loads the class and returns the
+instance to its worker, which keeps it; an actor task calls the method
+on the instance it is given (``actor_instance``) and stores the returns.
 
 The RUNNING task event is emitted as the task starts (reference
 ``executor.py:77``).  Divergence: a task whose node was killed while it
 ran stores no return and reports a ``NodeDiedError``, so its owner
-retries it on a live node; the reference's executor thread stores the
-late returns on the dead node.
+retries it on a live node, an actor's caller after the actor's restart
+(ROADMAP C.11, C.15); the reference's executor thread stores the late
+returns on the dead node.
 
 Left out, each with the item that brings it: the runtime env applied
-around the task body (``submit_task`` raises for a non-empty one), the
-``util.tracing`` span (the debug planes, A.4b.7), and the actor paths
-(the actors item, A.4b.5).
+around the task body (``submit_task`` raises for a non-empty one) and
+the ``util.tracing`` span (the debug planes, A.4b.7).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ray_tpu_torch import exceptions
 from ray_tpu_torch._private import worker_context
 from ray_tpu_torch._private.ids import ObjectID
 from ray_tpu_torch._private.serialization import deserialize
-from ray_tpu_torch._private.task_spec import TaskSpec
+from ray_tpu_torch._private.task_spec import TaskSpec, TaskType
 from ray_tpu_torch.gcs import task_events
 
 
@@ -63,15 +66,17 @@ def store_returns(spec: TaskSpec, values, node, core_worker):
     return results
 
 
-def execute_task(spec: TaskSpec, node, core_worker):
-    """Run one task on the current thread; returns (ok, error).
+def execute_task(spec: TaskSpec, node, core_worker, actor_instance=None):
+    """Run one task on the current thread; returns (ok, error), or
+    (True, instance) for an actor's creation task.
 
     On success return values are already stored.  On failure the caller
     (TaskManager) decides between retry and storing error objects.
     """
     ctx = worker_context.ExecutionContext(
         task_spec=spec, node=node,
-        worker=worker_context.get_context().worker)
+        worker=worker_context.get_context().worker,
+        actor_instance=actor_instance)
     prev = worker_context.get_context()
     worker_context.set_context(ctx)
     wid = getattr(ctx.worker, "worker_id", None)
@@ -81,12 +86,18 @@ def execute_task(spec: TaskSpec, node, core_worker):
     t0 = time.monotonic()
     try:
         args, kwargs = _split_args(resolve_args(spec, node, core_worker))
-        fn = core_worker.function_manager.load(spec.function_id)
-        result = fn(*args, **kwargs)
+        if spec.task_type == TaskType.ACTOR_TASK:
+            result = getattr(actor_instance,
+                             spec.actor_method_name)(*args, **kwargs)
+        else:
+            fn = core_worker.function_manager.load(spec.function_id)
+            result = fn(*args, **kwargs)
         if node._dead:
             # The node was killed under the task: its result never
             # reaches the owner, which retries the task elsewhere.
             return False, exceptions.NodeDiedError(node.node_id)
+        if spec.task_type == TaskType.ACTOR_CREATION_TASK:
+            return True, result
         store_returns(spec, result, node, core_worker)
         return True, None
     except Exception as e:  # noqa: BLE001 — user exceptions cross the boundary

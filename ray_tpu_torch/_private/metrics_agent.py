@@ -74,14 +74,24 @@ class MetricsRegistry:
             self._collectors.append((weakref.ref(owner), fn, set()))
 
     def run_collectors(self) -> None:
+        """Drop the entries of collected owners with the series they
+        wrote, then run the live collectors.  In that order: a series
+        that a dead owner and a live one both write (an unlabelled
+        module-wide counter) is written again by the live one, where
+        pruning after the run would take it out of this exposition."""
         with self._lock:
-            entries = list(self._collectors)
-        dead = []
-        for entry in entries:
-            ref, fn, written = entry
+            live, dead = [], []
+            for entry in self._collectors:
+                (live if entry[0]() is not None else dead).append(entry)
+            self._collectors = list(live)
+            for _ref, _fn, written in dead:
+                for name, labels in written:
+                    rec = self._metrics.get(name)
+                    if rec is not None:
+                        rec.series.pop(labels, None)
+        for ref, fn, written in live:
             owner = ref()
             if owner is None:
-                dead.append(entry)
                 continue
             self._tracking.keys = written
             try:
@@ -91,15 +101,6 @@ class MetricsRegistry:
                 logger.exception("metrics collector of %r failed", owner)
             finally:
                 self._tracking.keys = None
-        if dead:
-            with self._lock:
-                self._collectors = [c for c in self._collectors
-                                    if c not in dead]
-                for _ref, _fn, written in dead:
-                    for name, labels in written:
-                        rec = self._metrics.get(name)
-                        if rec is not None:
-                            rec.series.pop(labels, None)
 
     def _note_write(self, name: str, labels: _LabelKey) -> None:
         sink = getattr(self._tracking, "keys", None)

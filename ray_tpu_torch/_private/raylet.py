@@ -294,6 +294,20 @@ class Raylet:
         # A freed worker slot may unblock the dispatch queue.
         self.loop.post(self.local_task_manager.dispatch, "local.dispatch")
 
+    def on_actor_worker_exit(self, actor_id, worker_id):
+        """An actor's dedicated worker exited: its resources come back,
+        and the GCS hears of the death, naming the worker.  A killed
+        raylet reports nothing (its node's death reaches the GCS by the
+        missed heartbeats, and restarts its actors once; ROADMAP C.13);
+        the reference's killed raylet reports each actor worker's exit
+        too."""
+        self.local_task_manager.release_worker_resources(
+            _WorkerIdHolder(worker_id))
+        if self._dead or self.cluster is None:
+            return
+        self.cluster.gcs.actor_manager.on_actor_worker_died(
+            actor_id, "worker exited", worker_id=worker_id)
+
     # ---- placement-group bundle 2PC (node_manager.proto:319-330) -------
     def prepare_bundle_resources(self, pg_id, idx: int,
                                  req: ResourceRequest) -> bool:
@@ -409,3 +423,10 @@ class Raylet:
                 f"queues={self.cluster_task_manager.debug_state()} "
                 f"workers={self.worker_pool.num_total()} "
                 f"objects={self.object_store.num_objects()}")
+
+
+class _WorkerIdHolder:
+    __slots__ = ("worker_id",)
+
+    def __init__(self, worker_id):
+        self.worker_id = worker_id

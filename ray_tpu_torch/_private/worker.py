@@ -10,14 +10,16 @@ thread, raylet loop, heartbeat, pull thread and spill thread, the GCS
 and the reference counter's release thread; and the public
 ``get``/``put``/``wait``/``nodes`` (the GCS node manager's table, dead
 nodes included)/``cluster_resources``/``available_resources`` (the
-resource manager's) bodies that ``ray_tpu_torch`` re-exports.
+resource manager's)/``kill``/``get_actor`` bodies that ``ray_tpu_torch``
+re-exports.  ``init`` takes the driver's ``namespace`` (an anonymous one
+per job by default), where ``get_actor`` and a named actor without a
+namespace of its own look.
 
 The raylets' batched ticks run on ``device``: the card unless the caller
 passes ``device="cpu"``, so ``init`` raises without a card.  Left out
-until their items: the remote-driver (client) path and namespaces
-(ROADMAP A.4b.10), worker log mirroring, process workers
-(``worker_process_mode="process"`` raises), and the actor entry points
-(``kill``, ``get_actor``; the actors item, A.4b.5).
+until their items: the remote-driver (client) path (ROADMAP A.4b.10),
+worker log mirroring and process workers (``worker_process_mode=
+"process"`` raises; A.4b.9).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ class Worker:
         self.cluster = None
         self.core_worker: Optional[CoreWorker] = None
         self.job_id: Optional[JobID] = None
+        self.namespace: str = ""
 
 
 _global_worker: Optional[Worker] = None
@@ -64,7 +67,7 @@ def global_worker_or_none() -> Optional[Worker]:
 def init(*, num_cpus: Optional[float] = None,
          num_gpus: Optional[float] = None, resources: Optional[dict] = None,
          object_store_memory: Optional[int] = None,
-         ignore_reinit_error: bool = False,
+         namespace: str = "", ignore_reinit_error: bool = False,
          _system_config: Optional[dict] = None, _cluster=None,
          device=None):
     """Start an in-process cluster and attach this driver.
@@ -108,6 +111,7 @@ def init(*, num_cpus: Optional[float] = None,
                 raise
         w.cluster = cluster
         w.job_id = JobID.next()
+        w.namespace = namespace or f"anon_ns_{w.job_id.hex()}"
         w.core_worker = CoreWorker(cluster, w.job_id)
         cluster.attach_core_worker(w.core_worker)
         cluster.gcs.job_manager.add_job(w.job_id)
@@ -232,3 +236,28 @@ def cluster_resources() -> dict:
 def available_resources() -> dict:
     w = _require_connected()
     return w.cluster.gcs.resource_manager.live_available_resources()
+
+
+def kill(actor, *, no_restart: bool = True):
+    """Kill ``actor``: its worker stops after its current methods, and
+    the actor is DEAD, or restarts when ``no_restart`` is False and it
+    has restarts left."""
+    from ray_tpu_torch.actor import ActorHandle
+    w = _require_connected()
+    if not isinstance(actor, ActorHandle):
+        raise TypeError("kill() expects an ActorHandle")
+    w.cluster.gcs.actor_manager.destroy_actor(actor._actor_id,
+                                              no_restart=no_restart)
+
+
+def get_actor(name: str, namespace: Optional[str] = None):
+    """The handle of the live actor named ``name`` in ``namespace`` (the
+    driver's by default); ``ValueError`` when there is none."""
+    from ray_tpu_torch.actor import ActorHandle
+    w = _require_connected()
+    ns = namespace if namespace is not None else w.namespace
+    actor = w.cluster.gcs.actor_manager.get_named_actor(name, ns)
+    if actor is None:
+        raise ValueError(f"Failed to look up actor {name!r} in namespace "
+                         f"{ns!r}")
+    return ActorHandle._from_gcs_actor(actor)

@@ -8,8 +8,11 @@ incarnations and fencing counts, the heartbeat manager (a node is
 SUSPECT after ``num_heartbeats_suspect`` missed beats and DEAD after
 ``num_heartbeats_timeout``), the resource manager's poll and broadcast
 on the GCS loop, the job and worker managers, the task-event buffer and
-manager, and the placement-group manager; ``reconcile`` rebuilds the
-live state from the tables after a restart.  One ``GcsServer`` serves
+manager, the actor manager and the placement-group manager;
+``reconcile`` rebuilds the live state from the tables after a restart.
+A node's death reaches the actor manager first (its actors restart or
+die), then the placement-group manager, then the listeners, as in the
+reference; a SUSPECT node's actors are left alone.  One ``GcsServer`` serves
 the raylets of one process; a raylet "RPC" is a method call.
 
 The GCS runs its batched solves on ``device`` (the placement-group
@@ -26,10 +29,8 @@ either.  A death is declared (and published)
 there, and the cascade (the resource view, the placement groups, the
 listeners) is posted to the GCS loop.  The reference checks on the GCS
 loop, by a timer that drifts.
-Left out until their items: the actor manager and the actor half of
-``reconcile`` (ROADMAP A.4b.5), the timeline store, which has no
-producer before the remote node hosts (A.4b.9), and the flight recorder
-(A.4b.7).  Where the reference notes a failed raylet poll, broadcast or
+Left out until their items: the timeline store, which has no producer
+before the remote node hosts (A.4b.9), and the flight recorder (A.4b.7).  Where the reference notes a failed raylet poll, broadcast or
 death listener on its debug plane (``swallow.noted``), this GCS logs it
 and counts it in ``stats``.
 
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import logging
 import os
+import random
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -581,6 +583,9 @@ class GcsServer:
                                                    TaskEventManager)
         self.task_event_manager = TaskEventManager(self.publisher)
         self.task_events = TaskEventBuffer(self.publisher)
+        from ray_tpu_torch.gcs.actor_manager import GcsActorManager
+        self.actor_manager = GcsActorManager(
+            self, random.Random(cfg.actor_scheduling_seed))
         from ray_tpu_torch.gcs.placement_group_manager import \
             GcsPlacementGroupManager
         self.placement_group_manager = GcsPlacementGroupManager(self)
@@ -626,9 +631,9 @@ class GcsServer:
     def reconcile(self, raylets):
         """After a restart over persistent storage: register the
         surviving raylets again, declare dead the nodes of the table that
-        did not survive, and rebuild the placement groups from their
-        table (GcsInitData and ReleaseUnusedBundles).  The actor half
-        comes with actors (ROADMAP A.4b.5)."""
+        did not survive, and rebuild the actors and the placement groups
+        from their tables (GcsInitData and ReleaseUnusedBundles).  The
+        actor half's ms are kept in ``reconcile_ms["actors"]``."""
         survivors = set()
         for raylet in raylets:
             self.register_raylet(raylet)
@@ -639,6 +644,9 @@ class GcsServer:
                 self.node_manager.record_death_from_storage(
                     node_id, info, "did not survive GCS restart")
                 self._notify_node_death(node_id)
+        t0 = time.perf_counter()
+        self.actor_manager.reconcile(raylets)
+        self.reconcile_ms = {"actors": (time.perf_counter() - t0) * 1e3}
         self.placement_group_manager.reconcile(raylets)
 
     def _on_node_death(self, node_id: NodeID):
@@ -665,6 +673,7 @@ class GcsServer:
         self.resource_manager.set_suspect(node_id, False)
 
     def _notify_node_death(self, node_id: NodeID):
+        self.actor_manager.on_node_death(node_id)
         self.placement_group_manager.on_node_death(node_id)
         for cb in list(self._node_death_listeners):
             try:

@@ -145,8 +145,7 @@ class GcsTable:
 
 
 class GcsTableStorage:
-    """Every GCS table (``gcs_table_storage.h:345``).  The actor table
-    stays empty until actors are ported (ROADMAP A.4b.5)."""
+    """Every GCS table (``gcs_table_storage.h:345``)."""
 
     def __init__(self, store: StoreClient):
         self.store = store

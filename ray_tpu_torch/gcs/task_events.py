@@ -243,10 +243,16 @@ class TaskEventBuffer:
                         self._flusher_started = True
                         start_flusher = True
         if start_flusher:
-            self._flusher = threading.Thread(
-                target=self._flusher_loop, daemon=True,
-                name=f"ray_tpu_torch::task-events::{self._buffer_id[:16]}")
-            self._flusher.start()
+            # Started under the lock ``stop`` takes: ``stop`` sees no
+            # flusher or a started one, and none starts after it.
+            with self._start_lock:
+                if not self._stopped:
+                    flusher = threading.Thread(
+                        target=self._flusher_loop, daemon=True,
+                        name=f"ray_tpu_torch::task-events::"
+                             f"{self._buffer_id[:16]}")
+                    flusher.start()
+                    self._flusher = flusher
         if inline_flush:
             self.flush()
         elif flush_now and not self._flush_wake.is_set():
@@ -271,10 +277,11 @@ class TaskEventBuffer:
 
     def stop(self):
         """Shut the flusher down, draining the tail events first."""
-        self._stopped = True
+        with self._start_lock:
+            self._stopped = True
+            thread = self._flusher
         self._flush_wake.set()
         self.flush()
-        thread = self._flusher
         if thread is not None and thread is not threading.current_thread():
             thread.join(timeout=5)
 

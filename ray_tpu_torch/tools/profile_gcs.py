@@ -34,8 +34,14 @@ on a wrong value.
   other group is CREATED on the bundle nodes it had; the deleted
   group's bundles are released on its raylets; 1,000 tasks into the
   groups' bundles all run on their bundle's node and see their group,
-  their leases placed by the raylets' batched ticks.  Reported: the
-  restart's ms (shutdown, reload, reconcile) and the journal's bytes.
+  their leases placed by the raylets' batched ticks.  With the groups,
+  64 live actors (16 of them named) have counted to 3, and one actor's
+  worker is killed without telling the GCS just before the restart.
+  Checks, after it: every other actor is re-attached ALIVE and its next
+  call returns 4; every named actor is found by ``get_actor``; the
+  killed one is ALIVE again on a new worker with one restart, and its
+  next call returns 1.  Reported: the restart's ms (shutdown, reload,
+  reconcile, and the reconcile's actor share) and the journal's bytes.
 
 ``device="cpu"`` rehearses a phase on the plain class fill.
 """
@@ -64,6 +70,8 @@ H1_ARRAY_ELEMS = 1 << 20
 H1_VICTIMS = 8
 H1_GROUPS = 4
 H2_TASKS = 1_000
+H2_ACTORS = 64
+H2_NAMED = 16
 WALL_S = 600.0
 
 
@@ -279,7 +287,16 @@ def _node_id(hex_id):
     return NodeID.from_hex(hex_id)
 
 
-def gcs_restart(device="cuda", n_tasks=H2_TASKS):
+class _Counter:
+    def __init__(self):
+        self.n = 0
+
+    def incr(self):
+        self.n += 1
+        return self.n
+
+
+def gcs_restart(device="cuda", n_tasks=H2_TASKS, n_actors=H2_ACTORS):
     """H2 (module docstring).  Returns its numbers."""
     from ray_tpu_torch.util import placement_group, placement_group_table
     from ray_tpu_torch.util.scheduling_strategies import \
@@ -308,12 +325,42 @@ def gcs_restart(device="cuda", n_tasks=H2_TASKS):
         rt.get(first, timeout=WALL_S)
         _wait(lambda: all(placement_group_table(pg)["state"] == "CREATED"
                           for pg in pgs), 10, "H2: groups CREATED")
+        counter = rt.remote(max_restarts=1)(_Counter)
+        handles = [counter.options(name=f"h2-{i}").remote()
+                   if i < H2_NAMED else counter.remote()
+                   for i in range(n_actors)]
+        counts = rt.get([h.incr.remote() for _ in range(3)
+                         for h in handles], timeout=WALL_S)
+        if counts != [c for c in (1, 2, 3) for _ in handles]:
+            raise AssertionError("H2: the actors' counts before the "
+                                 "restart are wrong")
+        # The last actor's worker dies in the outage, unknown to the GCS.
+        lost = cluster.gcs.actor_manager.get_actor(handles[-1]._actor_id)
+        lost_worker = lost.worker
+        lost_worker._killed.set()
+        lost_worker.state = "DEAD"
         leaked = pgs[len(pgs) // 2]
         holders = {_node_id(n) for n in before[len(pgs) // 2].values()}
         journal_bytes = os.path.getsize(cluster._gcs_storage_path)
         cluster.gcs.storage.placement_group_table.delete(leaked.id)
         cluster.restart_gcs()
         restart_ms = dict(cluster.restart_ms)
+        mgr = cluster.gcs.actor_manager
+        _wait(lambda: mgr.get_actor(handles[-1]._actor_id) is not None and
+              mgr.get_actor(handles[-1]._actor_id).state == "ALIVE", 30,
+              "H2: the lost actor ALIVE again")
+        after = rt.get([h.incr.remote() for h in handles], timeout=WALL_S)
+        again = mgr.get_actor(handles[-1]._actor_id)
+        if after != [4] * (n_actors - 1) + [1] or \
+                again.num_restarts != 1 or again.worker is lost_worker:
+            raise AssertionError(
+                f"H2: after the restart the actors counted "
+                f"{sorted(set(after[:-1]))} and the lost one "
+                f"{after[-1]} with {again.num_restarts} restarts")
+        for i in range(H2_NAMED):
+            if rt.get_actor(f"h2-{i}")._actor_id != handles[i]._actor_id:
+                raise AssertionError(f"H2: get_actor('h2-{i}') found "
+                                     "another actor")
 
         kept = [(pg, b) for pg, b in zip(pgs, before) if pg is not leaked]
         for pg, bundle_nodes in kept:
@@ -355,8 +402,11 @@ def gcs_restart(device="cuda", n_tasks=H2_TASKS):
                "groups_kept": len(kept),
                "leaked_group_nodes": len(holders),
                "restart_ms": restart_ms,
-               "restart_total_ms": sum(restart_ms.values()),
+               "restart_total_ms": sum(restart_ms[k] for k in (
+                   "shutdown", "reload", "reconcile")),
                "journal_bytes": journal_bytes, "tasks": n_tasks,
+               "actors": n_actors, "named": H2_NAMED,
+               "reconcile_actors_ms": restart_ms["reconcile_actors"],
                "tasks_per_s": n_tasks / tasks_s}
     finally:
         env.close()

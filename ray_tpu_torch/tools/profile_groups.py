@@ -97,13 +97,14 @@ class _Runtime:
     under a temporary directory (and whose GCS journals to a file there
     with ``file_gcs``); ``close`` shuts both down."""
 
-    def __init__(self, device, file_gcs=False):
+    def __init__(self, device, file_gcs=False, system_config=None):
         import ray_tpu_torch as rt
         from ray_tpu_torch._private.cluster import Cluster
         from ray_tpu_torch._private.config import initialize_config
         self.rt = rt
         self.temp_dir = tempfile.mkdtemp(prefix="ray_tpu_torch-groups-")
-        self.system_config = {"temp_dir": self.temp_dir}
+        self.system_config = {"temp_dir": self.temp_dir,
+                              **(system_config or {})}
         initialize_config(self.system_config)
         self.cluster = Cluster(
             device=device, gcs_storage_path=os.path.join(

@@ -21,6 +21,7 @@ solve's counters.  The last test checks that no thread of the port
 outlives ``shutdown``.
 """
 
+import gc
 import importlib
 import threading
 import time
@@ -389,6 +390,38 @@ def test_bundle_packing_counters_are_exported():
     for key, value in bundle_packing.kernel_stats.items():
         assert f"ray_tpu_pg_bundle_packing_{key} {value}" in lines
     assert bundle_packing.kernel_stats["greedy_placements"] >= 1
+
+
+def test_a_collected_owners_shared_series_stays_in_the_render():
+    """Two owners' collectors write one unlabelled series (as every
+    placement-group manager writes ``ray_tpu.pg.bundle_packing.*``).
+    When one owner is collected, the render still carries the series
+    the live one wrote: the dead entry is pruned before the live
+    collectors run, not after."""
+    from ray_tpu_torch._private.metrics_agent import (MetricsRegistry,
+                                                      record_internal)
+    import ray_tpu_torch._private.metrics_agent as agent
+
+    class Owner:
+        pass
+
+    registry = MetricsRegistry()
+    saved = agent._registry
+    agent._registry = registry
+    try:
+        def collect(_owner):
+            record_internal("ray_tpu.test.shared_counter", 7)
+        dead, live = Owner(), Owner()
+        registry.register_collector(dead, collect)
+        registry.register_collector(live, collect)
+        assert "ray_tpu_test_shared_counter 7" in \
+            registry.render_prometheus().splitlines()
+        del dead
+        gc.collect()
+        assert "ray_tpu_test_shared_counter 7" in \
+            registry.render_prometheus().splitlines()
+    finally:
+        agent._registry = saved
 
 
 def test_no_port_thread_survives_shutdown():

@@ -2,13 +2,16 @@
 ``gcs.job_graph``) against the JAX package's, on the CPU.
 
 * The ``TestTaskEvents`` cases of ``tests/test_observability.py`` that
-  need no process worker and no actor, under each package's ``init``,
-  reading ``gcs.task_event_manager`` (through ``flushed_manager``) where
-  the reference reads ``experimental.state`` (ROADMAP A.4b.10): the
+  need no process worker, under each package's ``init``, reading
+  ``gcs.task_event_manager`` (through ``flushed_manager``) where the
+  reference reads ``experimental.state`` (ROADMAP A.4b.10): the
   lifecycle, the attempt counter of a retry, a failed task's error, a
   500-task burst with no event dropped, filters and pages, a task's
-  record by id.  The outcomes (states, attempts, counts; no time stamp)
-  must be equal.
+  record by id; and an actor's: its creation task's records and its
+  methods' lifecycles (PENDING_ARGS_AVAIL at the submit,
+  SUBMITTED_TO_WORKER at the actor submitter, RUNNING, FINISHED or
+  FAILED with the error), all on the actor's node and worker. The
+  outcomes (states, attempts, counts; no time stamp) must be equal.
 * A lineage reconstruction rewinds the task's FINISHED record
   (RECONSTRUCTING with an attempt above the retries, then FINISHED
   again), under both packages.
@@ -190,16 +193,84 @@ def case_reconstruction_rewinds_the_record(env):
             env.names.get(rec["node_id"], rec["node_id"]))
 
 
+class CounterTe:
+    def __init__(self, start):
+        self.n = start
+
+    def incr(self):
+        self.n += 1
+        return self.n
+
+    def boom(self):
+        raise RuntimeError("deliberate")
+
+
+def _creation_records(env):
+    """The records of the creation task: it has no submit event (the
+    GCS places it), so its record has no name, or the class's
+    ``__init__``."""
+    def rows():
+        return [r for r in manager(env).tasks()
+                if "CounterTe.__init__" in r["name"] or not r["name"]]
+    wait_until(lambda: any("RUNNING" in r["state_ts"] for r in rows()),
+               10, "the creation's record")
+    return rows()
+
+
+def case_actor_lifecycle(env):
+    """An actor's creation and its methods' lifecycles: each method
+    goes PENDING_ARGS_AVAIL, SUBMITTED_TO_WORKER, RUNNING, FINISHED on
+    the actor's node and worker; the creation task is stamped where the
+    raylet placed it and where it ran."""
+    c = env.pkg.remote(CounterTe).remote(10)
+    out = env.pkg.get([c.incr.remote() for _ in range(3)], timeout=30)
+    rows = rows_named(env, "CounterTe.incr")
+    wait_until(lambda: sum(r["state"] == "FINISHED"
+                           for r in rows_named(env, "CounterTe.incr")) == 3,
+               10, "three FINISHED records")
+    rows = rows_named(env, "CounterTe.incr")
+    creation = _creation_records(env)
+    created = [sorted(set(s for s, _ts in r["events"]), key=ORDER.index)
+               for r in creation]
+    return (out, len(rows), [lifecycle(r) for r in rows],
+            len({(r["node_id"], r["worker_id"]) for r in rows}),
+            created, [bool(r["node_id"]) for r in creation])
+
+
+def case_actor_method_failure(env):
+    c = env.pkg.remote(CounterTe).remote(0)
+    try:
+        env.pkg.get(c.boom.remote(), timeout=30)
+        raised = False
+    except RuntimeError:
+        raised = True
+    rec = rows_named(env, "CounterTe.boom")[-1]
+    return (raised, rec["state"], lifecycle(rec)[0],
+            "deliberate" in (rec["error"] or ""))
+
+
 @pytest.mark.parametrize("case", [
     case_lifecycle, case_attempt_counter_on_retry,
     case_failed_task_records_error, case_burst_500_tasks_zero_drops,
     case_filters_and_pagination, case_record_by_task_id,
-    case_reconstruction_rewinds_the_record,
+    case_reconstruction_rewinds_the_record, case_actor_lifecycle,
+    case_actor_method_failure,
 ], ids=lambda c: c.__name__)
 def test_task_events_case_matches_jax(case):
     jax, port = both(case, 2)
     assert port == jax
     assert port[0] == "value", port
+
+
+def test_actor_method_lifecycle_is_the_reference_one():
+    jax, port = both(case_actor_lifecycle, 2)
+    assert port == jax
+    out, n, lifecycles, places, _created, _placed = jax[1]
+    assert (out, n, places) == ([11, 12, 13], 3, 1)
+    # A method is never leased: no SCHEDULED.
+    method = [s for s in LIFECYCLE if s != "SCHEDULED"]
+    assert lifecycles == [(method, True, True, "FINISHED",
+                           True, True, True)] * 3
 
 
 def test_lifecycle_is_the_reference_one():
@@ -341,6 +412,43 @@ def test_buffer_flushes_every_event_as_in_jax():
             mgr.num_dropped_at_source() == buf.dropped
     jax, port = [case(pkg) for pkg in PACKAGES]
     assert port == jax == (800, 0, True)
+
+
+def test_stop_during_the_flushers_start_joins_it(monkeypatch):
+    """A ``stop`` that comes while an emit is starting the flusher
+    thread (a shutdown racing a late task event) waits for the start
+    and joins the thread, where it used to find the thread created but
+    not started and raise.  The port joins its flusher; the reference
+    never does, so this is the port's alone."""
+    import threading
+
+    te = mod("ray_tpu_torch", "gcs.task_events")
+    started = threading.Event()
+
+    class SlowStart(threading.Thread):
+        def start(self):
+            started.set()
+            time.sleep(0.2)
+            super().start()
+
+    class Threading:
+        """The module's ``threading`` with a flusher slow to start."""
+        Thread = SlowStart
+
+        def __getattr__(self, name):
+            return getattr(threading, name)
+
+    buf = te.TaskEventBuffer(mod("ray_tpu_torch", "gcs.pubsub").Publisher(),
+                             batch_size=1, stripes=1)
+    monkeypatch.setattr(te, "threading", Threading())
+    emitter = threading.Thread(
+        target=lambda: buf.emit("00" * 16, "RUNNING"))
+    emitter.start()
+    assert started.wait(10)
+    buf.stop()
+    emitter.join(10)
+    assert not emitter.is_alive()
+    assert buf._flusher is not None and not buf._flusher.is_alive()
 
 
 def test_emit_counts_a_failing_buffer():

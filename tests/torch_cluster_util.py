@@ -1,5 +1,5 @@
 """Running one case on each package's cluster, for the port's
-placement-group and autoscaler parity tests: ``Env`` (a cluster with
+placement-group, autoscaler and actor parity tests: ``Env`` (a cluster with
 named nodes of the same totals under each package's ``init``, its
 ``temp_dir`` fresh), ``run_case`` and ``both``, and outcomes as comparable
 data (``outcome``: the value, or the error's type and message with ids
@@ -45,7 +45,7 @@ class Env:
     both (the JAX package's defaults: 4 GiB of ``memory``, 2 GiB of
     ``object_store_memory``), its ``temp_dir`` fresh and removed after."""
 
-    def __init__(self, name, head_cpus, system_config=None):
+    def __init__(self, name, head_cpus, system_config=None, device="cpu"):
         self.name = name
         self.pkg = importlib.import_module(name)
         self.util = importlib.import_module(f"{name}.util")
@@ -57,7 +57,7 @@ class Env:
         self.names = {}
         if name == PORT:
             from ray_tpu_torch._private.cluster import Cluster
-            self.cluster = Cluster(device="cpu")
+            self.cluster = Cluster(device=device)
             head = self.cluster.add_node(self._totals(head_cpus, None),
                                          node_name="head")
         else:
@@ -135,8 +135,10 @@ def wait_until(predicate, timeout=30.0, what="the condition"):
         time.sleep(0.01)
 
 
-def run_case(name, case, head_cpus, system_config=None):
-    env = Env(name, head_cpus, system_config)
+def run_case(name, case, head_cpus, system_config=None, device="cpu"):
+    """``case(env)``'s outcome on ``name``'s cluster; the port's raylets
+    tick on ``device`` (the card with None)."""
+    env = Env(name, head_cpus, system_config, device=device)
     try:
         return outcome(lambda: case(env))
     finally:
