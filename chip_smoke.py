@@ -187,6 +187,28 @@ at least one):
       call sealed from a killed node's thread; ms from kill to DEAD and
       from the last DEAD to the last actor ALIVE again, calls failed;
 
+the device-object plane and ``ray_tpu_torch.util`` under ``init`` on the
+card (``ray_tpu_torch.tools.profile_device``; the launch count zeroed
+before each phase and read after it):
+
+  D1. a head and 8 raylets: a 1 GiB float32 CUDA tensor put (ms, one
+      1 GiB device copy and no host byte), read on the head as the
+      stored CUDA tensor (equal, one object, unchanged by a write into
+      the original) and by an actor there with no host copy; a 256 MiB
+      CUDA return, a device entry on the head alone and ready for
+      ``wait``, pulled by another raylet bit for bit, in float32 and in
+      bf16 (the GB/s of the pull's device-to-host copy); a small CUDA
+      tensor passed inline arriving as a CPU tensor; spill pressure on a
+      store half full of device entries spilling none of them; the GPU
+      count and ``get_gpu_ids`` of a ``num_gpus=1`` task;
+  U1. 8 actors in a collective group on 16 MiB CUDA tensors: allreduce
+      under every ReduceOp with the reduction on the card, then
+      reducescatter, broadcast, allgather, send/recv and barrier, each
+      held to numpy (ms each); ``ActorPool.map`` of 1,000 calls in order,
+      a ``Queue`` of 10,000 items through two producers and one
+      consumer, a ``ParallelIterator`` over 8 shards, and ``metrics`` in
+      the registry's render;
+
 and the transformer's forward pass (``Transformer``) at the width of
 ``bench_model.py``'s single-chip model (vocab 32,000, d_model 1024, 16
 heads, d_ff 4096; ``ray_tpu_torch.models.bench``):
@@ -1121,6 +1143,63 @@ def phase_actor_faults(cf):
         f"node's thread; class_fill launches {out['launches']} = batched "
         f"ticks; GCS actor handlers {out['gcs_actor_handlers']}, loop lag "
         f"max {out['gcs_loop_lag_max_ms']:.1f} ms")
+    return out
+
+
+def phase_device_objects(cf):
+    """D1: ``profile_device.device_objects`` on the card (its module
+    docstring); its checks run inside."""
+    from ray_tpu_torch.tools import profile_device as pd
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    cf.class_fill.launches = 0
+    out = pd.device_objects("cuda")
+    out["launches"] = cf.class_fill.launches
+    check_no_threads("D1")
+    if out["launches"] != out["batched_ticks"]:
+        raise AssertionError(f"D1: class_fill launched {out['launches']} "
+                             f"times for {out['batched_ticks']} batched "
+                             "ticks")
+    pulls = "; ".join(
+        f"{k} {p['bytes'] / 2**20:.0f} MiB: device-to-host "
+        f"{p['d2h_gbps']:.2f} GB/s, the read {p['read_ms']:.1f} ms "
+        f"({p['read_gbps']:.2f} GB/s)" for k, p in out["pulls"].items())
+    sp = out["spill"]
+    log(f"[D1] put of {out['gib']:.0f} GiB float32 on the card "
+        f"{out['put_ms']:.3f} ms, {out['put_device_bytes']} bytes copied "
+        f"on the device, {out['put_host_bytes']} on the host; get gives "
+        f"the stored CUDA tensor; an actor read it with "
+        f"{out['actor_host_bytes']} host bytes copied; a "
+        f"{out['return_mib']} MiB return a device entry on the head alone; "
+        f"pulled bit for bit: {pulls}; a small inline tensor arrived on the "
+        f"CPU; a {sp['capacity_mib']} MiB store holding {sp['device_mib']} "
+        f"MiB of device entries took {sp['numpy_mib']} MiB of numpy "
+        f"returns and spilled {sp['spilled_objects']} numpy entries and "
+        f"no device entry; GPU {out['gpus']:.0f}, a num_gpus=1 task saw "
+        f"[0]; class_fill launches {out['launches']} = batched ticks")
+    return out
+
+
+def phase_util(cf):
+    """U1: ``profile_device.util_library`` on the card (its module
+    docstring); its checks run inside."""
+    from ray_tpu_torch.tools import profile_device as pd
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    cf.class_fill.launches = 0
+    out = pd.util_library("cuda")
+    out["launches"] = cf.class_fill.launches
+    check_no_threads("U1")
+    if out["launches"] != out["batched_ticks"]:
+        raise AssertionError(f"U1: class_fill launched {out['launches']} "
+                             f"times for {out['batched_ticks']} batched "
+                             "ticks")
+    ms = ", ".join(f"{k} {v:.1f}" for k, v in out["ms"].items())
+    log(f"[U1] {out['ranks']} ranks x {out['elements']} float32 (16 MiB) "
+        f"CUDA tensors, {out['reductions']} reductions by device, each "
+        f"result held to numpy; ms per collective: {ms}; ActorPool.map "
+        f"{out['pool_calls_per_s']:.0f} calls/s in order; Queue "
+        f"{out['queue_items_per_s']:.0f} items/s; ParallelIterator "
+        f"{out['iter_items_per_s']:.0f} items/s; metrics rendered; "
+        f"class_fill launches {out['launches']} = batched ticks")
     return out
 
 
@@ -2107,7 +2186,11 @@ def main() -> int:
                  "gcs.task_events", "gcs.job_graph", "tools.profile_gcs",
                  "actor", "gcs.actor_manager",
                  "_private.direct_actor_submitter",
-                 "tools.profile_actors"):
+                 "tools.profile_actors", "util.collective",
+                 "util.collective.collective", "util.actor_pool",
+                 "util.queue", "util.iter", "util.metrics",
+                 "util.check_serialize", "util.rpdb",
+                 "tools.profile_device"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
@@ -2150,6 +2233,8 @@ def main() -> int:
     h2 = phase_gcs_restart(cf)
     k1 = phase_actors(cf)
     k2 = phase_actor_faults(cf)
+    d1 = phase_device_objects(cf)
+    u1 = phase_util(cf)
     fb, fb128 = phase_flash_bwd(torch, fa, mb)
     t1 = phase_train_f32(torch, tt, fa, mb, mb.CONFIG, "train f32")
     t3f = phase_train_f32(torch, tt, fa, mb, mb.MOE_CONFIG, "moe train f32")
@@ -2204,7 +2289,8 @@ def main() -> int:
                      c2["launches"] +
                      sum(o["launches"] for o in objects.values()) +
                      g1["launches"] + a1["launches"] + h1["launches"] +
-                     h2["launches"] + k1["launches"] + k2["launches"]),
+                     h2["launches"] + k1["launches"] + k2["launches"] +
+                     d1["launches"] + u1["launches"]),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -2338,6 +2424,8 @@ def main() -> int:
                     "gcs_restart": h2,
                     "actors": k1,
                     "actor_faults": k2,
+                    "device_objects": d1,
+                    "util": u1,
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "runtime": r1["launches"],
@@ -2353,6 +2441,8 @@ def main() -> int:
                                  "gcs_restart": h2["launches"],
                                  "actors": k1["launches"],
                                  "actor_faults": k2["launches"],
+                                 "device_objects": d1["launches"],
+                                 "util": u1["launches"],
                                  "forward": launches_m,
                                  "moe_forward": m3["launches"],
                                  "train_forward": t2["launches"][0],

@@ -2,8 +2,10 @@
 ``@remote`` on functions and classes, ``get``, ``put``, ``wait``,
 ``kill``, ``get_actor``) on thread workers of an in-process cluster,
 with its object plane (node stores that spill, pulls and relay between
-raylets, lineage reconstruction);
-placement groups (``ray_tpu_torch.util``) and the autoscaler's loop
+raylets, lineage reconstruction, tensors kept on their device as
+objects) and the GPU resource (``get_gpu_ids``);
+``ray_tpu_torch.util`` (placement groups, the collective, ActorPool,
+Queue, iter, metrics, check_serialize, rpdb) and the autoscaler's loop
 (``ray_tpu_torch.autoscaler``); the GCS (``ray_tpu_torch.gcs``: storage,
 pubsub, the node, heartbeat, resource, job, KV and actor managers, task
 events) under the in-process ``Cluster``;
@@ -26,8 +28,9 @@ from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.raylet import Raylet
 from ray_tpu_torch._private.worker import (available_resources,
                                            cluster_resources, get,
-                                           get_actor, init, is_initialized,
-                                           kill, nodes, put, shutdown, wait)
+                                           get_actor, get_gpu_ids, init,
+                                           is_initialized, kill, nodes, put,
+                                           shutdown, wait)
 from ray_tpu_torch.autoscaler.resource_demand_scheduler import \
     ResourceDemandScheduler
 from ray_tpu_torch.models import (Transformer, TransformerConfig, forward,
@@ -45,7 +48,8 @@ __all__ = ["BatchSolver", "DeviceRuntimeSolver", "Cluster",
            "MeshConfig", "ObjectRef", "Raylet", "ResourceDemandScheduler",
            "Transformer", "TransformerConfig", "available_resources",
            "build_mesh", "cluster_resources", "exceptions", "forward", "get",
-           "get_actor", "get_runtime_context", "infer_mesh_config", "init",
+           "get_actor", "get_gpu_ids", "get_runtime_context",
+           "infer_mesh_config", "init",
            "init_params", "is_initialized", "kill", "loss_fn",
            "make_train_state", "make_train_step", "nodes",
            "param_specs", "put", "remote",

@@ -21,9 +21,13 @@ arguments until the actor is DEAD (a restart runs the creation task
 again), and ``submit_actor_task`` (:1940) hands a method to the
 ``actor_submitter``; an actor task's returns and an actor's creation are
 never reconstructed from lineage (actor state is not reconstructable).
+A tensor put or returned whole is a device object (the reference's
+``jax.Array`` branch, ``_is_device_array``): the store of the local (or
+executing) node keeps a private copy of it on its own device (ROADMAP
+C.19), whatever its size, and the directory records the location; the
+owner's memory store holds nothing for it.
 Owner-death invalidation (``fail_owned_object``) comes with the process
-workers whose death calls it (ROADMAP A.4b.9); a CUDA tensor as an object
-waits for the device-object plane (A.5); the tracing spans and flight
+workers whose death calls it (ROADMAP A.4b.9); the tracing spans and flight
 recorder of the reference belong to the debug planes (A.4b.7).  The task
 events of the submit (PENDING_ARGS_AVAIL, with the parent and the
 argument ids) and of a reconstruction (RECONSTRUCTING) go to the GCS's
@@ -47,12 +51,13 @@ from ray_tpu_torch._private.ids import JobID, ObjectID, TaskID, WorkerID
 from ray_tpu_torch._private.metrics_agent import (get_metrics_registry,
                                                   record_internal)
 from ray_tpu_torch._private.object_ref import ObjectRef
-from ray_tpu_torch._private.object_store import (InPlasmaMarker,
+from ray_tpu_torch._private.object_store import (DeviceObject,
+                                                 InPlasmaMarker,
                                                  MemoryStore,
                                                  ObjectVanishedError,
                                                  entry_value)
 from ray_tpu_torch._private.reference_counter import ReferenceCounter
-from ray_tpu_torch._private.serialization import serialize
+from ray_tpu_torch._private.serialization import copy_stats, serialize
 from ray_tpu_torch._private.task_manager import TaskManager
 from ray_tpu_torch._private.task_spec import TaskArg, TaskSpec
 from ray_tpu_torch.gcs import pubsub as pubsub_mod
@@ -123,6 +128,14 @@ class CoreWorker:
         return ObjectRef(object_id, owner_id=self.worker_id)
 
     def put_value(self, object_id: ObjectID, value: Any):
+        if _is_device_tensor(value):
+            data = _device_object(value)
+            self.reference_counter.add_owned_object(object_id)
+            raylet = self.local_raylet
+            raylet.object_store.put(object_id, data)
+            self.cluster.object_directory.add_location(
+                object_id, raylet.node_id, size=data.nbytes)
+            return
         serialized = serialize(value)
         contained = [r.object_id() for r in serialized.contained_refs]
         self.reference_counter.add_owned_object(object_id,
@@ -139,7 +152,14 @@ class CoreWorker:
     def put_return_value(self, object_id: ObjectID, value: Any, node) -> int:
         """Store a task return (small: the owner's memory store, the
         'inline reply'; big: the executing node's store and the
-        directory)."""
+        directory; a tensor: the executing node's store and the
+        directory, as a device object, with no memory-store entry)."""
+        if _is_device_tensor(value):
+            data = _device_object(value)
+            node.object_store.put(object_id, data)
+            self.cluster.object_directory.add_location(
+                object_id, node.node_id, size=data.nbytes)
+            return data.nbytes
         serialized = serialize(value)
         contained = [r.object_id() for r in serialized.contained_refs]
         if contained:
@@ -211,8 +231,14 @@ class CoreWorker:
                     pass
                 except _Retry:
                     continue
-            # Nowhere and not pending: lineage reconstruction.
-            if not self._is_pending(object_id) and not locations:
+            # Nowhere and not pending: lineage reconstruction.  The
+            # directory is read again after the pending check: a device
+            # return seals nothing in the memory store, and its location
+            # lands just before its task stops pending, so the read
+            # above may predate it (ROADMAP C.21).
+            if not self._is_pending(object_id) and \
+                    not self.cluster.object_directory.get_locations(
+                        object_id):
                 if self.recover_object(object_id):
                     # Resubmitted now, or a backoff window is open:
                     # polled every pass, so a copy lost again gets its
@@ -422,8 +448,12 @@ class CoreWorker:
                                    owner_id=a.owner_id()))
                 dep_ids.append(a.object_id())
             else:
-                s = serialize(a)
-                if s.total_bytes > limit:
+                # A tensor above the limit is promoted without making
+                # its host form first (a device-to-host copy of all of
+                # it, only to be measured).
+                s = None if _is_device_tensor(a) and \
+                    a.numel() * a.element_size() > limit else serialize(a)
+                if s is None or s.total_bytes > limit:
                     ref = self.put(a)
                     holders.append(ref)
                     out.append(TaskArg(is_inline=False,
@@ -634,6 +664,32 @@ class CoreWorker:
     def record_task_metric(self, spec: TaskSpec, elapsed: float):
         self.metrics["tasks_finished"] += 1
         self.metrics["task_exec_seconds"] += elapsed
+
+
+def _is_device_tensor(value) -> bool:
+    """True for a tensor the device-object plane keeps (reference
+    ``_is_device_array``, a live ``jax.Array``): a plain strided tensor
+    on the card or the CPU, not a subclass, sparse or quantized one,
+    which take the serialized path."""
+    import torch
+    return type(value) is torch.Tensor and \
+        value.layout == torch.strided and not value.is_quantized and \
+        value.device.type in ("cuda", "cpu")
+
+
+def _device_object(value) -> DeviceObject:
+    """A device object over a private copy of ``value`` on its own
+    device (ROADMAP C.19: a tensor, unlike a ``jax.Array``, can be
+    written after the put), counted in
+    ``copy_stats["device_bytes_copied"]``."""
+    import torch
+    with torch.no_grad():
+        copy = value.detach().clone(memory_format=torch.preserve_format)
+    if value.requires_grad:
+        copy.requires_grad_()
+    data = DeviceObject(copy)
+    copy_stats["device_bytes_copied"] += data.nbytes
+    return data
 
 
 class _ReconState:

@@ -18,10 +18,14 @@ A port of ``ray_tpu._private.object_store`` for the PyTorch port:
   ``_PartialTransfer`` (the relay read of an in-flight transfer).
 
 The store holds objects the way the reference's python-held path does
-(``native_backend=None``): a ``SerializedObject`` per entry.  The native
-shared-memory segment (``_NativeHandle``, ``_SegmentTransferWriter``,
-``segment_chunk_source``) is ROADMAP A.4b.2b, device objects
-(``DeviceObject``) are A.5, and the chunk server's hooks
+(``native_backend=None``): a ``SerializedObject`` per entry, or a
+``DeviceObject``, a tensor kept where it lies (the card, or the CPU for
+a cluster on ``device="cpu"``).  A device entry counts its bytes against
+the store's capacity like any entry, is never a spill candidate, turns
+into its host form for a pull or a forced spill, and is handed out as
+the stored tensor on the same node.  The native shared-memory segment
+(``_NativeHandle``, ``_SegmentTransferWriter``, ``segment_chunk_source``)
+is ROADMAP A.4b.2b, and the chunk server's hooks
 (``partial_chunk_source``) come with the cross-process fetch.  The
 reference's fault-injection points, flight recorder and tracing spans
 (A.4b.7) are left out.
@@ -43,7 +47,7 @@ from ray_tpu_torch._private.metrics_agent import (get_metrics_registry,
 from ray_tpu_torch._private.serialization import (SerializedObject,
                                                   aligned_flat_buffer,
                                                   copy_into_view,
-                                                  deserialize)
+                                                  deserialize, serialize)
 
 
 def _spill_url(path: str, offset: int, size: int) -> str:
@@ -74,12 +78,32 @@ def write_flat(f, data: SerializedObject) -> int:
     return n
 
 
+class DeviceObject:
+    """A store entry whose payload is a tensor, kept on its device
+    (reference ``DeviceObject``, whose payload is a ``jax.Array``).
+
+    Readers on the same node get the stored tensor itself, with no host
+    copy; the host form is made only for a pull to another node or a
+    forced spill.  The tensor is the store's private copy (ROADMAP
+    C.19): a reader must not write into it."""
+
+    __slots__ = ("value", "nbytes")
+
+    def __init__(self, value):
+        self.value = value
+        self.nbytes = value.numel() * value.element_size()
+
+    def to_serialized(self) -> SerializedObject:
+        return serialize(self.value)
+
+
 class _Entry:
     __slots__ = ("data", "error", "size", "pin_count", "last_access",
-                 "spilled_path", "sealed", "primary", "spilling")
+                 "spilled_path", "sealed", "is_device", "primary",
+                 "spilling")
 
     def __init__(self, data=None, error=None, size=0):
-        self.data = data              # SerializedObject | marker | None
+        self.data = data   # SerializedObject | DeviceObject | marker | None
         self.error = error            # Exception to raise at get()
         self.size = size
         # READER pins only (executor argument reads): a reader-pinned
@@ -95,6 +119,7 @@ class _Entry:
         #: Spill location URL (``path?offset=&size=``) once on disk.
         self.spilled_path: Optional[str] = None
         self.sealed = data is not None or error is not None
+        self.is_device = isinstance(data, DeviceObject)
 
 
 class MemoryStore:
@@ -518,12 +543,13 @@ class NodeObjectStore:
             self._spill_manager = manager
 
     # ---- create/seal (plasma lifecycle) --------------------------------
-    def put(self, object_id: ObjectID, data: SerializedObject,
-            pin: bool = True) -> int:
-        """Store ``data``; a put over capacity waits in the create
-        queue (``_ensure_capacity``).  A second put of an id returns the
-        first one's size."""
-        size = data.total_bytes
+    def put(self, object_id: ObjectID, data, pin: bool = True) -> int:
+        """Store ``data`` (a ``SerializedObject`` or a ``DeviceObject``,
+        whose ``nbytes`` count against the capacity alike); a put over
+        capacity waits in the create queue (``_ensure_capacity``).  A
+        second put of an id returns the first one's size."""
+        size = data.nbytes if isinstance(data, DeviceObject) \
+            else data.total_bytes
         with self._lock:
             existing = self._entries.get(object_id)
             if existing is None and self._ensure_capacity(size):
@@ -601,11 +627,18 @@ class NodeObjectStore:
 
     def get_serialized(self, object_id: ObjectID
                        ) -> Optional[SerializedObject]:
+        """The entry's serialized form: a device entry's host form for
+        a pull."""
         try:
             e = self.get(object_id)
         except ObjectVanishedError:
             return None
-        return None if e is None else e.data
+        if e is None:
+            return None
+        data = e.data
+        if isinstance(data, DeviceObject):
+            return data.to_serialized()
+        return data
 
     def pin(self, object_id: ObjectID):
         """Reader pin: protects the entry from spill selection."""
@@ -674,9 +707,11 @@ class NodeObjectStore:
     # ---- capacity / spilling -------------------------------------------
     def _spillable_locked(self, e: _Entry) -> bool:
         """Spill candidate: sealed bytes in memory, no reader pins, not
-        already being spilled by the spill thread."""
-        return (e.data is not None and e.sealed and e.pin_count == 0
-                and not e.spilling)
+        device-resident (``select_spill_victims`` and the inline spill
+        never pick a device entry), not already being spilled by the
+        spill thread."""
+        return (e.data is not None and e.sealed and not e.is_device
+                and e.pin_count == 0 and not e.spilling)
 
     def _spill_safe_locked(self, e: _Entry, now: float) -> bool:
         """Spillable and not touched within the last second: ``get()``
@@ -801,9 +836,15 @@ class NodeObjectStore:
                 self.stats["spilled_objects"] += 1
                 self._lock.notify_all()
             return
+        data = e.data
+        if isinstance(data, DeviceObject):
+            # Only a direct call spills a device entry: its host form
+            # goes to disk, and a restore reads it back as host bytes.
+            data = data.to_serialized()
+            e.is_device = False
         path = os.path.join(self.spill_dir, object_id.hex())
         with open(path, "wb") as f:
-            nbytes = write_flat(f, e.data)
+            nbytes = write_flat(f, data)
         self._register_spill_locked(object_id, e, path, 0, nbytes)
 
     def _register_spill_locked(self, object_id: ObjectID, e: _Entry,
@@ -1156,4 +1197,6 @@ def entry_value(entry: _Entry):
     data = entry.data
     if data is None:
         raise ObjectVanishedError(f"{entry!r} was spilled mid-read")
+    if isinstance(data, DeviceObject):
+        return data.value
     return deserialize(data)

@@ -8,11 +8,15 @@ buffers), and nested ``ObjectRef`` capture, so that the owner can
 register the refs a value contains.  Values are serialized on ``put``,
 so a later mutation of the Python object cannot leak into the store.
 
-The reference brings a jax device array to the host here
-(``_device_to_host``).  The port's counterpart, a CUDA ``torch.Tensor``
-as an object, belongs to the device-object plane (ROADMAP A.5): until
-then serializing one raises ``NotImplementedError``, wherever in the
-value it sits.
+A tensor is the port's ``jax.Array``.  At a serialization boundary (an
+inline argument, a pull to another node, a spill) a CUDA tensor becomes
+its host form, ``tensor.detach().cpu()`` with its dtype kept, wherever
+in the value it sits (the reference's ``_device_to_host`` gives numpy,
+which has no bfloat16: ROADMAP C.20).  A CPU tensor is pickled as one
+out-of-band buffer of its bytes, as numpy is, and rebuilt by one copy
+into fresh memory, so a reader can never write into the store's bytes.
+A tensor put or returned whole never comes here: it is a device object
+(``object_store.DeviceObject``).
 
 The flat form (``flat_nbytes``, ``write_into``, ``to_bytes``,
 ``from_bytes``) is what the node store's spill files hold and what a
@@ -34,6 +38,7 @@ from __future__ import annotations
 import io
 import pickle
 import sys
+import time
 from typing import Any, Iterator, List, Tuple
 
 import cloudpickle
@@ -43,12 +48,23 @@ import cloudpickle
 #: GIL).
 _NUMPY_COPY_MIN = 256 * 1024
 
+#: The data plane's copy ledger: payload bytes copied on the host by
+#: ``copy_into_view`` (``bytes_copied``, ``copies``); the bytes of the
+#: private copy a tensor put or returned as a device object takes on its
+#: own device (``device_bytes_copied``, ROADMAP C.19); and the bytes and
+#: seconds of the device-to-host copies that make CUDA tensors' host
+#: forms (``device_to_host_bytes``, ``device_to_host_s``).
+copy_stats = {"bytes_copied": 0, "copies": 0, "device_bytes_copied": 0,
+              "device_to_host_bytes": 0, "device_to_host_s": 0.0}
+
 
 def copy_into_view(dst: memoryview, offset: int, src) -> int:
     """Copy ``src`` (a buffer-protocol object) into ``dst[offset:]``:
     the data plane's one copy.  Returns the bytes written."""
     mv = src if isinstance(src, memoryview) else memoryview(src)
     n = mv.nbytes
+    copy_stats["bytes_copied"] += n
+    copy_stats["copies"] += 1
     if n >= _NUMPY_COPY_MIN and mv.contiguous:
         import numpy as np
         d = np.frombuffer(dst, dtype=np.uint8, count=n, offset=offset)
@@ -188,10 +204,50 @@ def _is_object_ref(obj) -> bool:
     return isinstance(obj, ObjectRef)
 
 
-def _is_cuda_tensor(obj) -> bool:
+def _is_tensor(obj) -> bool:
     torch = sys.modules.get("torch")
     tensor = getattr(torch, "Tensor", None)
-    return tensor is not None and isinstance(obj, tensor) and obj.is_cuda
+    return tensor is not None and isinstance(obj, tensor)
+
+
+def host_form(tensor):
+    """A tensor's host form: a CUDA tensor copied to the CPU with its
+    dtype kept (a copy that waits for the card), a CPU tensor as it is
+    (ROADMAP C.20)."""
+    if not tensor.is_cuda:
+        return tensor
+    t0 = time.perf_counter()
+    out = tensor.detach().cpu()
+    copy_stats["device_to_host_s"] += time.perf_counter() - t0
+    copy_stats["device_to_host_bytes"] += out.numel() * out.element_size()
+    return out
+
+
+def _reduce_host_tensor(t):
+    """Pickle a CPU tensor as one out-of-band buffer of its bytes (no
+    copy), its dtype, shape and ``requires_grad``; other layouts and
+    subclasses take torch's own pickling."""
+    import torch
+    if type(t) is not torch.Tensor or t.layout != torch.strided or \
+            t.is_quantized:
+        return t.__reduce_ex__(5)
+    flat = t.detach().resolve_conj().resolve_neg().contiguous().reshape(-1)
+    raw = flat.view(torch.uint8).numpy()
+    return (_rebuild_host_tensor, (pickle.PickleBuffer(raw), t.dtype,
+                                   tuple(t.shape), t.requires_grad))
+
+
+def _rebuild_host_tensor(buf, dtype, shape, requires_grad):
+    """A fresh CPU tensor from ``_reduce_host_tensor``'s buffer (copied:
+    the buffer may be the store's read-only bytes)."""
+    import numpy as np
+    import torch
+    src = np.frombuffer(buf, dtype=np.uint8)
+    out = torch.empty(src.size, dtype=torch.uint8)
+    if src.size:
+        copy_into_view(memoryview(out.numpy()), 0, src)
+    t = out.view(dtype).reshape(shape)
+    return t.requires_grad_() if requires_grad else t
 
 
 class _Pickler(cloudpickle.CloudPickler):
@@ -211,12 +267,8 @@ class _Pickler(cloudpickle.CloudPickler):
             self._refs_out.append(obj)
             return (_deserialize_ref_placeholder,
                     (obj.binary(), obj.owner_id_binary()))
-        if _is_cuda_tensor(obj):
-            raise NotImplementedError(
-                f"a CUDA tensor ({tuple(obj.shape)}, {obj.dtype}) cannot "
-                "be an object yet: device objects come with the "
-                "device-object plane (ROADMAP A.5); move it to the CPU "
-                "first")
+        if _is_tensor(obj):
+            return _reduce_host_tensor(host_form(obj))
         return super().reducer_override(obj)
 
 

@@ -16,7 +16,12 @@ per job by default), where ``get_actor`` and a named actor without a
 namespace of its own look.
 
 The raylets' batched ticks run on ``device``: the card unless the caller
-passes ``device="cpu"``, so ``init`` raises without a card.  Left out
+passes ``device="cpu"``, so ``init`` raises without a card.  The head's
+GPU count is the caller's ``num_gpus``, else the cards that
+``torch.cuda.device_count()`` sees when the cluster is on the card (0 on
+the CPU): the counterpart of the reference's ``_detect_tpu_chips``,
+which creates no device context either; ``get_gpu_ids`` is its
+``get_tpu_ids``.  Left out
 until their items: the remote-driver (client) path (ROADMAP A.4b.10),
 worker log mirroring and process workers (``worker_process_mode=
 "process"`` raises; A.4b.9).
@@ -99,6 +104,8 @@ def init(*, num_cpus: Optional[float] = None,
             head = dict(resources or {})
             head["CPU"] = float(os.cpu_count() or 1) if num_cpus is None \
                 else float(num_cpus)
+            if num_gpus is None:
+                num_gpus = _detect_gpus(device)
             if num_gpus:
                 head["GPU"] = float(num_gpus)
             cluster = Cluster(device=device)
@@ -148,6 +155,15 @@ def _atexit_shutdown():
 def is_initialized() -> bool:
     w = global_worker_or_none()
     return bool(w and w.connected)
+
+
+def _detect_gpus(device) -> float:
+    """The cards of this host when the cluster runs on the card, else 0.
+    ``torch.cuda.device_count`` creates no context."""
+    import torch
+    if torch.device("cuda" if device is None else device).type != "cuda":
+        return 0.0
+    return float(torch.cuda.device_count())
 
 
 def _require_connected() -> Worker:
@@ -213,6 +229,16 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
     if num_returns > len(refs):
         raise ValueError("num_returns > number of refs")
     return w.core_worker.wait(refs, num_returns, timeout, fetch_local)
+
+
+def get_gpu_ids() -> List[int]:
+    """The GPU ids of the running task: ``range`` of its ``"GPU"``
+    demand (the reference's ``get_tpu_ids`` with ``"TPU"``); empty on
+    the driver."""
+    spec = worker_context.current_task_spec()
+    if spec is None:
+        return []
+    return list(range(int(spec.resources.get("GPU"))))
 
 
 def nodes() -> List[dict]:

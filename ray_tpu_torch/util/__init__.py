@@ -1,6 +1,9 @@
-"""Utilities of the port: placement groups and the scheduling strategies
-users pass (reference ``ray_tpu.util``; its other utilities come with
-the libraries, ROADMAP A.6)."""
+"""Utilities of the port on top of its public API (reference
+``ray_tpu.util``): placement groups and the scheduling strategies users
+pass, and, loaded on first access, ``ActorPool``, ``Queue``,
+``collective``, ``metrics``, ``iter`` and ``queue``.  The reference's
+``multiprocessing`` and ``joblib`` are not ported (ROADMAP A.6.8) and
+raise ``AttributeError``; ``tracing`` belongs to the debug planes."""
 
 from ray_tpu_torch.util.placement_group import (  # noqa: F401
     PlacementGroup, get_current_placement_group, get_placement_group,
@@ -12,4 +15,20 @@ __all__ = [
     "placement_group", "remove_placement_group", "get_placement_group",
     "placement_group_table", "get_current_placement_group", "PlacementGroup",
     "PlacementGroupSchedulingStrategy", "NodeAffinitySchedulingStrategy",
+    "ActorPool",
 ]
+
+
+def __getattr__(name):
+    # Lazy submodule access for the heavier utilities.
+    if name == "ActorPool":
+        from ray_tpu_torch.util.actor_pool import ActorPool
+        return ActorPool
+    if name == "Queue":
+        from ray_tpu_torch.util.queue import Queue
+        return Queue
+    if name in ("collective", "metrics", "iter", "queue"):
+        import importlib
+        return importlib.import_module(f"ray_tpu_torch.util.{name}")
+    raise AttributeError(
+        f"module 'ray_tpu_torch.util' has no attribute {name!r}")

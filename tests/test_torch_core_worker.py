@@ -15,7 +15,8 @@ stand-ins that raise; ``init`` without a card.  The task functions live
 at module level, so that both packages' function export pickles them by
 reference, and a task blocks on a ``threading.Event`` of this module
 where the reference's tests sleep.  A ``gpu`` twin runs the basic cases
-on the card's raylet against ``device="cpu"``.  The last test checks
+on the card's raylet against ``device="cpu"``, and a card test puts,
+reads, returns, passes and pulls a CUDA tensor.  The last test checks
 that no thread of the port outlives ``shutdown``.
 """
 
@@ -599,14 +600,51 @@ def test_basic_case_on_card_matches_cpu(case, cuda_device):
     assert card == host
 
 
+def _on_card(t):
+    return t.device.type, t.data_ptr()
+
+
+def _card_return(n):
+    return torch.arange(n, device="cuda", dtype=torch.float32)
+
+
 @pytest.mark.gpu
-def test_cuda_tensor_as_object_raises(cuda_device):
-    ray_tpu_torch.init(num_cpus=1)
+def test_cuda_tensor_as_object_round_trips(cuda_device):
+    """A CUDA tensor put, read on its node (the stored tensor, no host
+    copy), returned, passed inline (its host form) and pulled to another
+    raylet (its host form, bf16 kept)."""
+    from ray_tpu_torch._private.serialization import copy_stats
+    ray_tpu_torch.init(num_cpus=2, resources={"head": 10})
     try:
-        with pytest.raises(NotImplementedError, match="A.5"):
-            ray_tpu_torch.put(torch.ones(4, device=cuda_device))
-        assert ray_tpu_torch.get(ray_tpu_torch.put(torch.ones(4))).sum() \
-            == 4
+        cluster = ray_tpu_torch._private.worker.global_worker().cluster
+        cluster.add_node({"CPU": 1, "far": 1}, node_name="far")
+        on_head = ray_tpu_torch.remote(resources={"head": 1})(_on_card)
+        x = torch.randn(1 << 20, device=cuda_device)
+        t = x.clone()
+        host0 = copy_stats["bytes_copied"]
+        ref = ray_tpu_torch.put(t)
+        t.zero_()
+        got = ray_tpu_torch.get(ref)
+        assert got.is_cuda and torch.equal(got, x)
+        assert got is ray_tpu_torch.get(ref)
+        assert copy_stats["bytes_copied"] == host0
+        assert ray_tpu_torch.get(on_head.remote(ref)) == \
+            ("cuda", got.data_ptr())
+        ret = ray_tpu_torch.remote(resources={"head": 1})(
+            _card_return).remote(1000)
+        assert ray_tpu_torch.wait([ret], timeout=30)[0] == [ret]
+        assert torch.equal(ray_tpu_torch.get(ret),
+                           torch.arange(1000., device=cuda_device))
+        small = torch.ones(4, device=cuda_device)
+        assert ray_tpu_torch.get(on_head.remote(small))[0] == "cpu"
+        far = ray_tpu_torch.remote(resources={"far": 1})(_identity)
+        for dtype in (torch.float32, torch.bfloat16):
+            y = x.to(dtype)
+            pulled = ray_tpu_torch.get(far.remote(ray_tpu_torch.put(y)))
+            assert pulled.device.type == "cpu" and pulled.dtype == dtype
+            assert torch.equal(pulled, y.cpu())
+        assert ray_tpu_torch.cluster_resources()["GPU"] == \
+            torch.cuda.device_count()
     finally:
         ray_tpu_torch.shutdown()
 
