@@ -270,6 +270,34 @@ every mesh here has one rank: no multi-rank number exists (the
 multi-rank paths are held to JAX by gloo worlds on the CPU,
 ``tests/test_torch_parallel.py`` and ``tests/test_torch_pipeline.py``).
 
+and the libraries on the runtime, where the model meets it
+(``ray_tpu_torch.tools.profile_air``; every count read just before and
+just after the path it counts):
+
+  L1. ``init()`` on the card (its GPU counted) and ``train.Trainer(
+      backend="torch", num_workers=2, use_gpu=True,
+      resources_per_worker={"GPU": 0.5})``: a PACK group of two half-GPU
+      bundles, both on the head through the bundle solve on the card, and
+      two actors sharing the card; each rank trains T2's model from
+      ``PARAM_SEED`` on its half of T2's batch, averaging its gradients
+      with one ``util.collective.allreduce`` of one flattened buffer a
+      step, 1 warm-up and 4 timed steps, each ``train.report``ed: the
+      averaged gradient of step 1 and the 5 losses held to
+      ``make_train_step`` on the whole batch, each rank's rows its own
+      half, the ranks' parameters bit-equal after every step; the step's
+      p50 wall, the allreduce's share, tokens/s, peak memory, the flash
+      launches a step (16 forward and 8 backward a rank), the gang's
+      ``class_fill`` launches (its creation leases' batched tick) and
+      device bundle solves;
+  L2. ``data.from_numpy`` of 64 sequences of 1,025 tokens in 4 blocks,
+      ``ml.DataParallelTrainer(...).fit()`` on the same gang shape for 2
+      steps (each rank's shard through ``get_dataset_batches``), its
+      ``Checkpoint`` of host forms, and ``BatchPredictor.from_checkpoint(
+      ...).predict(ds, batch_size=8)``, one task a block on the card: the
+      predictions (each next token's log-probability and the argmax)
+      held to ``forward`` on the same batches; rows/s and the predict
+      wall.
+
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line; without CUDA, or without the package beside
@@ -2083,6 +2111,85 @@ def phase_train_bf16(torch, tt, fa, mb, cfg, flops, accounting, name,
             "ops_per_step": ops}
 
 
+def phase_train_dp(cf, fa):
+    """L1: ``profile_air.train_dp`` on the card (its module docstring);
+    its checks run inside.  The counts are set to 0 before it; its
+    launches are those of the gang's creation and of the trainer's run
+    (the whole-batch reference it is held to runs after them)."""
+    from ray_tpu_torch.tools import profile_air as pair
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    cf.class_fill.launches = 0
+    fa.flash_attention.launches = 0
+    fa.flash_attention_backward.launches = 0
+    out = pair.train_dp("cuda")
+    check_no_threads("L1")
+    gang, run = out["gang"], out["launches"]
+    for part in (gang, run):
+        if part["class_fill"] != part["batched_ticks"]:
+            raise AssertionError(f"L1: class_fill launched "
+                                 f"{part['class_fill']} times for "
+                                 f"{part['batched_ticks']} batched ticks")
+    if gang["bundle_solves_on_device"] != 1:
+        raise AssertionError(f"L1: {gang['bundle_solves_on_device']} "
+                             "bundle solves on the card for one group")
+    per = out["launches_per_step"]
+    log(f"[L1] Trainer(torch, 2 workers x GPU 0.5) on the card, "
+        f"{out['steps']} steps of T2's model and batch (a rank 4 rows): "
+        f"step p50 {out['step_ms_p50']:.1f} ms (timed steps "
+        f"{', '.join(f'{x:.1f}' for x in out['step_ms'])}), allreduce of "
+        f"{out['grad_bytes'] / 1e6:.1f} MB a rank p50 "
+        f"{out['allreduce_ms_p50']:.1f} ms, share "
+        f"{out['allreduce_share_p50']:.3f}; {out['tokens_per_s']:.0f} "
+        f"tokens/s; peak memory {out['peak_gb']:.2f} GB; averaged "
+        f"gradient of step 1 within {out['grad_rel_err']:.2e} of the "
+        f"whole batch's norm (tolerance {pair.GRAD_RTOL}); losses "
+        f"{', '.join(f'{x:.5f}' for x in out['losses'])} against "
+        f"{', '.join(f'{x:.5f}' for x in out['ref_losses'])} (max |diff| "
+        f"{out['loss_err']:.2e}, tolerance {pair.LOSS_ATOL}); ranks' "
+        f"parameters bit-equal after every step; flash launches a step "
+        f"forward {per['flash_forward']:.0f}, backward "
+        f"{per['flash_backward']:.0f}; the gang's creation: "
+        f"{gang['class_fill']} class_fill launches (= batched ticks), "
+        f"{gang['bundle_solves_on_device']} bundle solve on the card, "
+        f"{out['start_s'] * 1e3:.1f} ms; get_gpu_ids in a worker "
+        f"{out['gpu_ids']}")
+    return out
+
+
+def phase_data_ml(cf, fa):
+    """L2: ``profile_air.data_ml`` on the card (its module docstring);
+    its checks run inside.  The counts are set to 0 before it; its
+    launches are those of the fit and of the predict (the direct
+    forward it is held to runs after them)."""
+    from ray_tpu_torch.tools import profile_air as pair
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    cf.class_fill.launches = 0
+    fa.flash_attention.launches = 0
+    fa.flash_attention_backward.launches = 0
+    out = pair.data_ml("cuda")
+    check_no_threads("L2")
+    fit, pred = out["launches_fit"], out["launches_predict"]
+    for part in (fit, pred):
+        if part["class_fill"] != part["batched_ticks"]:
+            raise AssertionError(f"L2: class_fill launched "
+                                 f"{part['class_fill']} times for "
+                                 f"{part['batched_ticks']} batched ticks")
+    log(f"[L2] {out['rows']} sequences of 1,025 tokens in {out['blocks']} "
+        f"blocks: DataParallelTrainer.fit {out['steps']} steps in "
+        f"{out['fit_s']:.2f} s (losses "
+        f"{', '.join(f'{x:.5f}' for x in out['losses'])}), checkpoint of "
+        f"host forms; BatchPredictor.predict(batch_size=8) "
+        f"{out['predict_s'] * 1e3:.1f} ms, {out['rows_per_s']:.1f} rows/s; "
+        f"log-probabilities within {out['pred_max_abs_err']:.2e} of forward "
+        f"called directly (tolerance {pair.PRED_ATOL}), "
+        f"{out['argmax_mismatched']} argmax differ; flash launches fit "
+        f"{fit['flash_forward']} forward, {fit['flash_backward']} backward, "
+        f"predict {pred['flash_forward']} forward; class_fill launches fit "
+        f"{fit['class_fill']}, predict {pred['class_fill']} (= batched "
+        f"ticks)")
+    return out
+
+
 # Ring attention over a one-rank sp group against full_attention on the
 # card: float32 within 1e-5; bf16 within 2**-6 (one bf16 ulp at the
 # largest outputs, in [2, 4)): the ring rounds its unnormalised
@@ -2190,7 +2297,13 @@ def main() -> int:
                  "util.collective.collective", "util.actor_pool",
                  "util.queue", "util.iter", "util.metrics",
                  "util.check_serialize", "util.rpdb",
-                 "tools.profile_device"):
+                 "tools.profile_device", "train", "train.backend",
+                 "train.session", "train.worker_group", "train.checkpoint",
+                 "train.callbacks", "train.trainer", "data", "data.block",
+                 "data.dataset", "data.read_api", "data.dataset_pipeline",
+                 "data.impl.compute", "data.impl.push_shuffle", "ml",
+                 "ml.checkpoint", "ml.preprocessor", "ml.predictor",
+                 "ml.trainer", "ml.tuner", "tools.profile_air"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
@@ -2243,6 +2356,20 @@ def main() -> int:
     t3 = phase_train_bf16(torch, tt, fa, mb, mb.MOE_CONFIG,
                           lambda _: mb.moe_train_flops(), "moe_train_flops",
                           "moe train bf16")
+    l1 = phase_train_dp(cf, fa)
+    l2 = phase_data_ml(cf, fa)
+    air_class_fill = (l1["gang"]["class_fill"] + l1["launches"]["class_fill"]
+                      + l2["launches_fit"]["class_fill"] +
+                      l2["launches_predict"]["class_fill"])
+    air_fwd = (l1["launches"]["flash_forward"] +
+               l2["launches_fit"]["flash_forward"] +
+               l2["launches_predict"]["flash_forward"])
+    air_bwd = (l1["launches"]["flash_backward"] +
+               l2["launches_fit"]["flash_backward"])
+    if min(air_class_fill, air_fwd, air_bwd) < 1:
+        raise AssertionError(f"L1 and L2 launched class_fill "
+                             f"{air_class_fill}, the flash forward {air_fwd} "
+                             f"and its backward {air_bwd} times")
     # P1-P3: the same model on a mesh of one (the machine has one card, and
     # NCCL puts no two ranks on one device: no multi-rank number exists).
     import shutil
@@ -2290,7 +2417,7 @@ def main() -> int:
                      sum(o["launches"] for o in objects.values()) +
                      g1["launches"] + a1["launches"] + h1["launches"] +
                      h2["launches"] + k1["launches"] + k2["launches"] +
-                     d1["launches"] + u1["launches"]),
+                     d1["launches"] + u1["launches"] + air_class_fill),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -2307,7 +2434,7 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:79",
         "launches": (launches_m + t2["launches"][0] + m3["launches"] +
                      t3["launches"][0] + p1["launches"][0] +
-                     p2["launches"][0] + p3["launches"][0]),
+                     p2["launches"][0] + p3["launches"][0] + air_fwd),
         "max_abs_err": f["max_abs_err"],
         "ms": f["ms"],
         "plain_ms": f["plain_ms"],
@@ -2324,7 +2451,7 @@ def main() -> int:
         "design": "wgmma+tma, one launch for dK/dV and dQ after delta's",
         "launches": (t2["launches"][1] + t3["launches"][1] +
                      p1["launches"][1] + p2["launches"][1] +
-                     p3["launches"][1]),
+                     p3["launches"][1] + air_bwd),
         "max_abs_err": fb["max_abs_err"],
         "ms": fb["ms"],
         "plain_ms": fb["plain_ms"],
@@ -2426,6 +2553,9 @@ def main() -> int:
                     "actor_faults": k2,
                     "device_objects": d1,
                     "util": u1,
+                    "train_dp": {k: v for k, v in l1.items()
+                                 if k not in ("losses", "ref_losses")},
+                    "data_ml": l2,
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "runtime": r1["launches"],
@@ -2455,7 +2585,12 @@ def main() -> int:
                                  "mesh_train_forward": p2["launches"][0],
                                  "mesh_train_backward": p2["launches"][1],
                                  "pp_train_forward": p3["launches"][0],
-                                 "pp_train_backward": p3["launches"][1]}},
+                                 "pp_train_backward": p3["launches"][1],
+                                 "train_dp": {"gang": l1["gang"],
+                                              "run": l1["launches"]},
+                                 "data_ml": {
+                                     "fit": l2["launches_fit"],
+                                     "predict": l2["launches_predict"]}}},
                    default=str))
     log(json.dumps({"kernels": kernels}))
     log(smi)
