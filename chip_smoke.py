@@ -39,7 +39,7 @@ mode (``ray_tpu_torch._private``, ``ray_tpu_torch.autoscaler``):
       outputs equal to ``device="cpu"``'s, ms per call and the device
       time of one more call of each (``torch.profiler``);
   R3. a ``Cluster`` of 64 raylets on the card (the fleet's first 64
-      node shapes) and ``R3_LEASES`` leases (20,000 of the configuration's
+      node shapes) and ``R3_LEASES`` leases (10,000 of the configuration's
       100,000, to keep the run's wall) from a lessee with the reference
       submitter's protocol, each spillback re-sent with
       ``grant_or_reject`` (``ray_tpu_torch.tools.profile_cluster``):
@@ -58,7 +58,10 @@ tick running ``class_fill``:
       value checked, at least one ``class_fill`` launch, no fallback, no
       device error;
   C2. R3's cluster (64 raylets, the fleet's first 64 node shapes) under
-      ``init(_cluster=...)`` and 100,000 tasks of one no-op function in
+      ``init(_cluster=...)`` and ``C2_TASKS`` tasks (25,000 of the
+      configuration's 100,000, to keep the run's wall; ``python -m
+      ray_tpu_torch.tools.profile_tasks`` runs it whole) of one no-op
+      function in
       R3's 64 classes (``.options``), less the classes no node fits (their
       count and share printed as a cut), through the real submitter: every
       task returns its index, read once; tasks/s, the wall, p50/p99 from
@@ -172,7 +175,8 @@ at least one):
       counted), 64 named, 64 with ``max_concurrency=4``, 64 with
       concurrency groups: every actor ALIVE, named ones found, four
       calls of a concurrent actor sharing an instant, a blocked ``io``
-      call stalling no other group; 64 calls on every actor returning
+      call stalling no other group; ``K1_CALLS`` calls (16) on every
+      actor returning
       its running count in order, 1,000 tasks calling through a passed
       handle, 320 actors killed: ``available_resources()`` back to its
       value before the burst and their calls ``ActorDiedError``;
@@ -296,7 +300,35 @@ just after the path it counts):
       ...).predict(ds, batch_size=8)``, one task a block on the card: the
       predictions (each next token's log-probability and the argmax)
       held to ``forward`` on the same batches; rows/s and the predict
-      wall.
+      wall;
+
+and the model served and swept (``ray_tpu_torch.tools.profile_serve``;
+every count read just before and just after the path it counts):
+
+  S1. ``serve`` on ``init()`` on the card with
+      ``serve_kernel_placement="force"``: T2's model as a class
+      deployment of 2 replicas at ``{"num_gpus": 0.5}``, placed by the
+      controller's ``_kernel_place`` (the pack-mode solve, ``class_fill``
+      on the card), its weights deployed as ``ObjectRef``s of CUDA
+      tensors (device objects, no host copy); ``@serve.batch(
+      max_batch_size=8)`` runs requests of 1,024 tokens as forwards of
+      [<= 8, 1024]; 64 requests from 8 clients, half through a handle,
+      half over HTTP on loopback, each reply (the last position's argmax
+      and log-probability) held to ``forward`` on its batch's tokens;
+      requests/s, latency p50/p99, the mean batch fill;
+  S2. R3's 64 raylets under ``init()`` and serve's default
+      ``serve_kernel_placement="auto"``: ``tests/test_serve.py``'s soak
+      shape (2 to 4 replicas, 8 clients x 25 requests, batch 4) with the
+      queue-depth step's downscale delay: no request lost or misrouted,
+      at least one scale-up placed by the kernel solve, a scale-down
+      after the load; the time from the step to a new replica's first
+      reply, requests/s;
+  N1. ``ml.Tuner`` over L2's ``DataParallelTrainer`` with
+      ``param_space={"lr": tune.grid_search([3e-4, 3e-3])}``: 2 trials at
+      once, each 1 worker of ``{"CPU": 1, "GPU": 0.5}`` and 2 steps of
+      L2's batch, each trial's loss held to the same trainer run
+      directly, ``best_config`` that of the lower loss; the trials'
+      walls and the sweep's flash and ``class_fill`` launches.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -324,9 +356,15 @@ FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 # P3's microbatches: 4 of 2 sequences each at bench_model.py's batch of 8.
 PP_MICRO = 4
-# R3's leases here: 20,000 of the configuration's 100,000 (C2 drives the
-# same cluster at 100,000 tasks; ``tools.profile_cluster`` runs R3 whole).
-R3_LEASES = 20_000
+# The runtime phases' depth here, cut so that the whole run stays near
+# half of its time limit on a card machine whose host runs 3-4x slower
+# than usual: R3's leases (10,000 of the configuration's 100,000;
+# ``tools.profile_cluster`` runs it whole), C2's tasks (25,000 of
+# 100,000; ``tools.profile_tasks``) and K1's calls an actor (16 of 64;
+# ``tools.profile_actors``).
+R3_LEASES = 10_000
+C2_TASKS = 25_000
+K1_CALLS = 16
 
 
 def log(*a):
@@ -1011,11 +1049,11 @@ def phase_tasks_single(cf):
 
 
 def phase_tasks_cluster(cf):
-    """C2: ``profile_tasks.cluster_tasks`` on the card: 100,000 tasks
-    over 64 raylets, every kept one's result its index."""
+    """C2: ``profile_tasks.cluster_tasks`` on the card: ``C2_TASKS``
+    tasks over 64 raylets, every kept one's result its index."""
     from ray_tpu_torch.tools import profile_tasks as pt
     cf.class_fill.launches = 0
-    out = pt.cluster_tasks(pt.C2_TASKS, pt.C2_RAYLETS, "cuda")
+    out = pt.cluster_tasks(C2_TASKS, pt.C2_RAYLETS, "cuda")
     out["launches"] = cf.class_fill.launches
     if out["launches"] < 1 or \
             out["launches"] != sum(out["batched_ticks"].values()):
@@ -1118,7 +1156,7 @@ def phase_actors(cf):
     from ray_tpu_torch.tools import profile_actors as pa
     from ray_tpu_torch.tools.profile_objects import check_no_threads
     cf.class_fill.launches = 0
-    out = pa.actors("cuda")
+    out = pa.actors("cuda", calls=K1_CALLS)
     out["launches"] = cf.class_fill.launches
     check_no_threads("K1")
     if out["launches"] < 1 or out["launches"] != out["batched_ticks"]:
@@ -2190,6 +2228,110 @@ def phase_data_ml(cf, fa):
     return out
 
 
+def _check_solve_launches(name, launches):
+    """Every ``class_fill`` launch of the phase is a batched tick's or a
+    pack solve's."""
+    want = launches["batched_ticks"] + launches["pack_solves"]
+    if launches["class_fill"] != want:
+        raise AssertionError(f"{name}: class_fill launched "
+                             f"{launches['class_fill']} times for "
+                             f"{launches['batched_ticks']} batched ticks and "
+                             f"{launches['pack_solves']} pack solves")
+
+
+def _zero(cf, fa):
+    cf.class_fill.launches = 0
+    fa.flash_attention.launches = 0
+    fa.flash_attention_backward.launches = 0
+
+
+def phase_serve_model(cf, fa):
+    """S1: ``profile_serve.serve_model`` on the card (its module
+    docstring); its checks run inside.  The counts are set to 0 before
+    it; its launches are the deployment's and the requests' (the direct
+    forward it is held to runs after them)."""
+    from ray_tpu_torch.tools import profile_air as pair
+    from ray_tpu_torch.tools import profile_serve as pserve
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    _zero(cf, fa)
+    out = pserve.serve_model("cuda")
+    check_no_threads("S1")
+    n = out["launches"]
+    _check_solve_launches("S1", n)
+    log(f"[S1] serve: 2 replicas of T2's model at num_gpus 0.5 "
+        f"({out['replicas_on_head']} on the head), placed by the pack "
+        f"solve on the card ({out['kernel_placements']} kernel "
+        f"placements), weights as device objects on "
+        f"{out['weights_device']} ({out['weights_host_bytes']} bytes to the "
+        f"host), deployed in {out['deploy_s']:.2f} s; {out['requests']} "
+        f"requests of 1,024 tokens from {out['clients']} clients (half "
+        f"handle, half HTTP): {out['requests_per_s']:.1f} requests/s, "
+        f"latency p50 {out['latency_p50_ms']:.1f} ms, p99 "
+        f"{out['latency_p99_ms']:.1f} ms; {out['batches']} batches, mean "
+        f"fill {out['mean_batch_fill']:.3f}; replies within "
+        f"{out['max_abs_err']:.2e} of forward on the same batches "
+        f"(tolerance {pair.PRED_ATOL}), {out['argmax_mismatched']} argmax "
+        f"differ; launches: class_fill {n['class_fill']} (= "
+        f"{n['batched_ticks']} batched ticks + {n['pack_solves']} pack "
+        f"solves), flash forward {n['flash_forward']}")
+    return out
+
+
+def phase_autoscale(cf, fa):
+    """S2: ``profile_serve.autoscale`` on the card (its module
+    docstring); its checks run inside.  The counts are set to 0 before
+    it."""
+    from ray_tpu_torch.tools import profile_serve as pserve
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    _zero(cf, fa)
+    out = pserve.autoscale("cuda")
+    check_no_threads("S2")
+    n = out["launches"]
+    _check_solve_launches("S2", n)
+    st = out["autoscaler_stats"]
+    step = out["step_to_new_replica_ms"]
+    log(f"[S2] serve on R3's {out['raylets']} raylets (placement auto): "
+        f"{out['requests']} requests from {out['clients']} clients in "
+        f"{out['load_s']:.2f} s, {out['requests_per_s']:.1f} requests/s, "
+        f"none lost or misrouted; peak {out['peak_replicas']} replicas, "
+        f"step to a new replica's first reply "
+        f"{'none' if step is None else f'{step:.1f} ms'}; "
+        f"{st['scale_ups']} scale-ups, {st['scale_downs']} scale-downs (to "
+        f"2 in {out['load_end_to_scale_down_s']:.2f} s after the load), "
+        f"kernel placements {st['kernel_placements']} "
+        f"({out['deploy_kernel_placements']} at the deploy), kernel errors "
+        f"{st['kernel_errors']}; launches: class_fill {n['class_fill']} (= "
+        f"{n['batched_ticks']} batched ticks + {n['pack_solves']} pack "
+        f"solves)")
+    return out
+
+
+def phase_tune_model(cf, fa):
+    """N1: ``profile_serve.tune_model`` on the card (its module
+    docstring); its checks run inside.  The counts are set to 0 before
+    it; its launches are the sweep's (the direct runs it is held to come
+    after)."""
+    from ray_tpu_torch.tools import profile_air as pair
+    from ray_tpu_torch.tools import profile_serve as pserve
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    _zero(cf, fa)
+    out = pserve.tune_model("cuda")
+    check_no_threads("N1")
+    n = out["launches"]
+    _check_solve_launches("N1", n)
+    log(f"[N1] Tuner over DataParallelTrainer, lr grid "
+        f"{list(out['losses'])}: {out['trials']} trials of {out['steps']} "
+        f"steps at once, sweep {out['sweep_s']:.2f} s, trials' loops "
+        f"{', '.join(f'{v:.2f}' for v in out['trial_loop_s'].values())} s; "
+        f"losses {out['losses']} against the direct runs' "
+        f"{out['direct_losses']} (max |diff| {out['loss_err']:.2e}, "
+        f"tolerance {pair.LOSS_ATOL}); best_config {out['best_config']}; "
+        f"launches: flash forward {n['flash_forward']}, backward "
+        f"{n['flash_backward']}, class_fill {n['class_fill']} (= "
+        f"{n['batched_ticks']} batched ticks)")
+    return out
+
+
 # Ring attention over a one-rank sp group against full_attention on the
 # card: float32 within 1e-5; bf16 within 2**-6 (one bf16 ulp at the
 # largest outputs, in [2, 4)): the ring rounds its unnormalised
@@ -2303,7 +2445,13 @@ def main() -> int:
                  "data.dataset", "data.read_api", "data.dataset_pipeline",
                  "data.impl.compute", "data.impl.push_shuffle", "ml",
                  "ml.checkpoint", "ml.preprocessor", "ml.predictor",
-                 "ml.trainer", "ml.tuner", "tools.profile_air"):
+                 "ml.trainer", "ml.tuner", "tools.profile_air", "serve",
+                 "serve.api", "serve.batching", "serve.controller",
+                 "serve.handle", "serve.http_proxy", "serve.pipeline",
+                 "serve.replica", "serve.router", "tune", "tune.analysis",
+                 "tune.sample", "tune.schedulers", "tune.suggest",
+                 "tune.trainable", "tune.trial", "tune.trial_runner",
+                 "tune.tune", "tools.profile_serve"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
@@ -2370,6 +2518,18 @@ def main() -> int:
         raise AssertionError(f"L1 and L2 launched class_fill "
                              f"{air_class_fill}, the flash forward {air_fwd} "
                              f"and its backward {air_bwd} times")
+    s1 = phase_serve_model(cf, fa)
+    s2 = phase_autoscale(cf, fa)
+    n1 = phase_tune_model(cf, fa)
+    served = [s1["launches"], s2["launches"], n1["launches"]]
+    serve_class_fill = sum(x["class_fill"] for x in served)
+    serve_fwd = sum(x["flash_forward"] for x in served)
+    serve_bwd = sum(x["flash_backward"] for x in served)
+    if min(serve_class_fill, serve_fwd, serve_bwd) < 1:
+        raise AssertionError(f"S1, S2 and N1 launched class_fill "
+                             f"{serve_class_fill}, the flash forward "
+                             f"{serve_fwd} and its backward {serve_bwd} "
+                             "times")
     # P1-P3: the same model on a mesh of one (the machine has one card, and
     # NCCL puts no two ranks on one device: no multi-rank number exists).
     import shutil
@@ -2417,7 +2577,8 @@ def main() -> int:
                      sum(o["launches"] for o in objects.values()) +
                      g1["launches"] + a1["launches"] + h1["launches"] +
                      h2["launches"] + k1["launches"] + k2["launches"] +
-                     d1["launches"] + u1["launches"] + air_class_fill),
+                     d1["launches"] + u1["launches"] + air_class_fill +
+                     serve_class_fill),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -2434,7 +2595,8 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:79",
         "launches": (launches_m + t2["launches"][0] + m3["launches"] +
                      t3["launches"][0] + p1["launches"][0] +
-                     p2["launches"][0] + p3["launches"][0] + air_fwd),
+                     p2["launches"][0] + p3["launches"][0] + air_fwd +
+                     serve_fwd),
         "max_abs_err": f["max_abs_err"],
         "ms": f["ms"],
         "plain_ms": f["plain_ms"],
@@ -2451,7 +2613,7 @@ def main() -> int:
         "design": "wgmma+tma, one launch for dK/dV and dQ after delta's",
         "launches": (t2["launches"][1] + t3["launches"][1] +
                      p1["launches"][1] + p2["launches"][1] +
-                     p3["launches"][1] + air_bwd),
+                     p3["launches"][1] + air_bwd + serve_bwd),
         "max_abs_err": fb["max_abs_err"],
         "ms": fb["ms"],
         "plain_ms": fb["plain_ms"],
@@ -2556,6 +2718,9 @@ def main() -> int:
                     "train_dp": {k: v for k, v in l1.items()
                                  if k not in ("losses", "ref_losses")},
                     "data_ml": l2,
+                    "serve_model": s1,
+                    "autoscale": s2,
+                    "tune_model": n1,
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "runtime": r1["launches"],
@@ -2590,7 +2755,10 @@ def main() -> int:
                                               "run": l1["launches"]},
                                  "data_ml": {
                                      "fit": l2["launches_fit"],
-                                     "predict": l2["launches_predict"]}}},
+                                     "predict": l2["launches_predict"]},
+                                 "serve_model": s1["launches"],
+                                 "autoscale": s2["launches"],
+                                 "tune_model": n1["launches"]}},
                    default=str))
     log(json.dumps({"kernels": kernels}))
     log(smi)

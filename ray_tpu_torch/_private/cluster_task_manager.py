@@ -283,6 +283,14 @@ class ClusterTaskManager:
             # Even when the pass raised: an unreplied batch entry left
             # queued would defer the whole batch reply.
             self._resolve_batch_backlog(sweep)
+            with self._lock:
+                closed = self._closed
+            if closed:
+                # The raylet was killed during this pass (its loop's stop
+                # gave up waiting for it): the work it popped before
+                # ``reject_all`` and put back after would wait for a
+                # tick that never comes.  Answer it now.
+                self.reject_all(closed)
             dt = time.perf_counter() - t0
             self.tick_stats["ticks"] += 1
             if depth or held:

@@ -8,7 +8,9 @@ and those of the GCS (storage, resource broadcast, heartbeat, task
 events and the job graph, the actor scheduler's switch) and of the task
 path (the submitter's leases, the owner's memory store, retries,
 lineage, the thread workers' start slots) and those of the object plane
-(the node store, spilling, transfers and relay, lineage reconstruction).
+(the node store, spilling, transfers and relay, lineage reconstruction)
+and serve's five (replica placement, the pipeline's zero-copy
+threshold, the router's retries and queue reports).
 Three values differ by design: ``scheduler_backend`` names the device
 backend ``"torch"`` where the reference says ``"jax"``;
 ``use_native_object_store`` is False, as the native shared-memory
@@ -192,6 +194,30 @@ class Config:
     # ------ event loop ------
     #: Period of the raylet's fallback scheduling tick.
     event_loop_tick_ms: int = 5
+
+    # ------ serve (inference plane) ------
+    #: Replica placement backend for serve deployments: "auto" routes
+    #: replica starts through the pack-mode device solve (the class-fill
+    #: kernel on the card) when the cluster has at least
+    #: serve_kernel_min_nodes nodes (DEFAULT placement below that),
+    #: "force" always solves, "off" always DEFAULT placement.  A failure
+    #: of the solve is counted and raised (ROADMAP C.30).
+    serve_kernel_placement: str = "auto"
+    serve_kernel_min_nodes: int = 2
+    #: Pipeline ingress inputs at least this large are put ONCE into
+    #: the object store and handed to every stage as an ObjectRef (the
+    #: zero-copy object-id handoff) instead of being pickled into each
+    #: stage's task args.  0 forces the handoff for every input;
+    #: negative disables it.
+    serve_zero_copy_threshold_bytes: int = 65_536
+    #: How many times Router.call re-assigns a request whose replica
+    #: died mid-flight before surfacing ReplicaDiedError.  User
+    #: exceptions are NEVER retried.
+    serve_request_retries: int = 3
+    #: Cadence of the router's queue-depth reports to the controller
+    #: (the autoscaler's queue signal).  Idle routers go silent after
+    #: one zero report regardless of cadence.
+    serve_router_report_interval_s: float = 0.25
 
     # ------ misc ------
     #: Where the node stores spill (``<temp_dir>/spill/<node>``).

@@ -24,6 +24,14 @@ would treat that rejection as a failed lease (``_on_lease_failed``).
 The drop of a lease past 10 hops is the reference's: the task goes
 back to its class's queue for a fresh lease.
 
+C.33: the "local raylet" is the raylet of the calling thread's worker
+context, and a worker thread of a killed node finishes its task, or
+fails its queued ones, after its raylet died.  A re-lease, a bounce's
+delayed retry or a backlog probe started there would go to the dead
+raylet (rejected again) or ride its stopped loop's timers (never fired),
+and the task was lost.  They go to ``_live_raylet``: the local raylet
+while it lives, else the cluster's head node.
+
 Parity: reference ``src/ray/core_worker/transport/direct_task_transport.cc``
 — per-``SchedulingKey`` queues (direct_task_transport.h:53-57), worker lease
 reuse (``OnWorkerIdle`` .cc:157), new lease requests capped per scheduling
@@ -237,7 +245,19 @@ class DirectTaskSubmitter:
                 raylet = cluster.raylet(node_id)
                 if raylet is not None and size > best_bytes:
                     best, best_bytes = raylet, size
-        return best or self._core.local_raylet
+        return best or self._live_raylet()
+
+    def _live_raylet(self):
+        """The local raylet, or the head node when the calling thread
+        belongs to a killed node's raylet (C.33); None once the cluster
+        is torn down."""
+        raylet = self._core.local_raylet
+        if raylet is not None and not getattr(raylet, "_dead", False):
+            return raylet
+        head = self._core.cluster.head_node
+        if head is not None and not getattr(head, "_dead", False):
+            return head
+        return None
 
     def _clear_request_gate(self, key: int):
         with self._lock:
@@ -330,7 +350,7 @@ class DirectTaskSubmitter:
             # The entry stays accounted; no retry is charged.
             with self._lock:
                 self.submitter_stats["spillback_rejections"] += 1
-            self._request_lease(spec, key, raylet=self._core.local_raylet,
+            self._request_lease(spec, key, raylet=self._live_raylet(),
                                 hops=hops + 1)
         elif result.get("backlog"):
             if result.get("infeasible"):
@@ -413,8 +433,8 @@ class DirectTaskSubmitter:
         every future submit of the class forever.  Rides the raylet
         loop's timer heap (one pending timer per class, not one thread
         per bounce)."""
-        raylet = self._core.local_raylet
-        if raylet is None or getattr(raylet, "_dead", False):
+        raylet = self._live_raylet()
+        if raylet is None:
             with self._lock:
                 self._keys[key].backoff = False
             return
@@ -435,8 +455,7 @@ class DirectTaskSubmitter:
                 state = self._keys[key]
                 state.backlog_retry_pending = False
                 state.backoff = False      # probe: try leasing again
-            local = self._core.local_raylet
-            if local is None or getattr(local, "_dead", False):
+            if self._live_raylet() is None:
                 return
             self._pump(key)
 
@@ -481,9 +500,8 @@ class DirectTaskSubmitter:
                 # tasks every 0.2s for several heartbeats, and a Timer
                 # THREAD per bounce would be thread churn exactly while
                 # the scheduler is busiest.
-                raylet = self._core.local_raylet
-                if raylet is not None and not getattr(raylet, "_dead",
-                                                      False):
+                raylet = self._live_raylet()
+                if raylet is not None:
                     raylet.loop.schedule_after(
                         _LEASE_BOUNCE_DELAY_S,
                         lambda: self._resubmit_bounced(spec),
@@ -499,8 +517,7 @@ class DirectTaskSubmitter:
         cluster torn down while the timer was pending must not be
         resubmitted into (the re-lease would bounce-loop against dead
         raylets across later tests in the same process)."""
-        raylet = self._core.local_raylet
-        if raylet is None or getattr(raylet, "_dead", False):
+        if self._live_raylet() is None:
             return
         self.submit(spec)
 

@@ -4,9 +4,9 @@ The port of ``ray_tpu.ml`` (reference ``python/ray/ml/``):
 ``Preprocessor`` fit/transform over Datasets, ``Checkpoint`` as the
 interchange object (host forms, ROADMAP C.27),
 ``DataParallelTrainer.fit() -> Result``, ``Predictor``/``BatchPredictor``
-for inference over Datasets, built on ``ray_tpu_torch.train`` and
-``ray_tpu_torch.data``.  ``Tuner`` is a stand-in until Tune is ported
-(A.6.5).
+for inference over Datasets, and ``Tuner`` (a sweep of a trainer's
+config through ``ray_tpu_torch.tune``), built on ``ray_tpu_torch.train``
+and ``ray_tpu_torch.data``.
 """
 
 from ray_tpu_torch.ml.checkpoint import Checkpoint

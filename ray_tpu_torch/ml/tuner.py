@@ -1,10 +1,11 @@
-"""Tuner: sweep a trainer's config through Tune — a stand-in.
+"""Tuner: sweep a trainer's config through Tune.
 
-The reference's ``ray_tpu.ml.tuner`` (``python/ray/ml``'s Tune bridge:
-the param_space overlays the trainer's train_loop_config per trial) runs
-on ``ray_tpu.tune``, which the port does not have yet.  ``Tuner`` keeps
-the reference's constructor; ``fit`` raises ``NotImplementedError``
-naming ROADMAP A.6.5, where Tune is queued.
+A copy of ``ray_tpu.ml.tuner`` for the PyTorch port (reference
+``python/ray/ml``'s Tune bridge, ``Tuner.fit() -> ResultGrid``-lite):
+the param_space overlays the trainer's train_loop_config per trial;
+each trial runs a ``DataParallelTrainer`` with the base trainer's
+scaling config (``use_gpu``, ROADMAP C.24) and reports its final
+metrics through the Tune session.
 """
 
 from __future__ import annotations
@@ -27,8 +28,29 @@ class Tuner:
         self._scheduler = scheduler
 
     def fit(self):
-        raise NotImplementedError(
-            "ml.Tuner.fit: Tune is not ported yet (ROADMAP A.6.5)")
+        from ray_tpu_torch import tune
+
+        base = self._trainer
+
+        def trial(config):
+            trainer = DataParallelTrainer(
+                base._train_loop,
+                train_loop_config={**base._config, **config},
+                datasets=base._datasets,
+                preprocessor=base._preprocessor,
+                scaling_config={"num_workers": base._num_workers,
+                                "use_gpu": base._use_gpu,
+                                "resources_per_worker": base._resources})
+            result = trainer.fit()
+            metrics = dict(result.metrics)
+            metrics.setdefault(self._metric, float("nan"))
+            tune.report(**metrics)
+
+        analysis = tune.run(trial, config=self._param_space,
+                            metric=self._metric, mode=self._mode,
+                            num_samples=self._num_samples,
+                            scheduler=self._scheduler)
+        return analysis
 
 
 __all__ = ["Tuner", "Result"]

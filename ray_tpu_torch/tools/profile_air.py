@@ -133,7 +133,8 @@ def dp_train_loop(config: Dict):
     ``cfg.dtype``, its host form moved back to the device and divided by
     the world size, ``AdamW.update_``; then ``train.report`` of the
     loss, the step's and the allreduce's ms, the hashes of the rank's
-    rows and of its parameters, and (rank 0, first step, with
+    rows and of its parameters, the seconds since the loop began, and
+    (rank 0, first step, with
     ``report_grad``) the averaged flat gradient's host form.  With
     ``checkpoint``, rank 0 saves the final parameters (host forms) and
     ``cfg``."""
@@ -165,6 +166,7 @@ def dp_train_loop(config: Dict):
         batches = [np.asarray(b[column])
                    for b in get_dataset_batches(config, "train")]
     params = state["params"]
+    began = time.perf_counter()
     for i, rows_np in enumerate(batches):
         batch = {"tokens": torch.from_numpy(
             np.ascontiguousarray(rows_np, np.int64)).to(dev)}
@@ -184,6 +186,7 @@ def dp_train_loop(config: Dict):
         t3 = time.perf_counter()
         report = {"step": i, "loss": float(loss.detach()),
                   "step_ms": (t3 - t0) * 1e3, "allreduce_ms": (t2 - t1) * 1e3,
+                  "loop_s": t3 - began,
                   "grad_elements": int(flat.numel()),
                   "shard_sha": _tokens_hash(rows_np),
                   "params_sha": fingerprint(params)}
@@ -229,14 +232,15 @@ def _delta(cluster, before: Dict) -> Dict:
     return {k: now[k] - before[k] for k in before}
 
 
-def _init(device):
-    """``init`` on ``device`` with the bundle solve on it; on the CPU a
-    GPU is declared, so that the half-GPU bundles fit as on the card."""
+def _init(device, **system_config):
+    """``init`` on ``device`` with the bundle solve on it (and
+    ``system_config``'s other knobs); on the CPU a GPU is declared, so
+    that the half-GPU bundles fit as on the card."""
     import ray_tpu_torch as rt
     on_card = torch.device(device).type == "cuda"
     rt.init(device=device, num_cpus=max(4, os.cpu_count() or 1),
             num_gpus=None if on_card else 1,
-            _system_config={"pg_kernel_backend": "force"})
+            _system_config={"pg_kernel_backend": "force", **system_config})
 
 
 def _check_raylets(name, cluster):

@@ -17,7 +17,11 @@ on a wrong value.
   20,000 no-op tasks in R3's classes (those no node fits cut, as in
   C2), and, a quarter into the burst, ``kill_node`` of 8 raylets other
   than the head: one bundle node of each group and four more from a
-  seeded draw.  Checks: each victim published SUSPECT, then DEAD, within
+  seeded draw.  As soon as the GCS publishes a victim SUSPECT (before
+  DEAD), the tool sends a burst of fresh leases in R3's classes straight
+  to the first survivors whose views mask it (``_MaskProbe``), so that a
+  batched tick runs under the mask in every run, whatever the main
+  burst's leases are doing then.  Checks: each victim published SUSPECT, then DEAD, within
   ``num_heartbeats_timeout`` periods plus two of its kill; a device solve
   ran under a mask, and none placed a lease on a node its view masked
   when it started (``ClusterTaskManager.mask_stats``); every task
@@ -56,7 +60,7 @@ import time
 import numpy as np
 
 from ray_tpu_torch.tools.profile_cluster import (N_RAYLETS, bench_names,
-                                                 row_dict)
+                                                 make_specs, row_dict)
 from ray_tpu_torch.tools.profile_groups import G1_GROUPS, _Runtime, _where
 from ray_tpu_torch.tools.profile_tasks import (_check_clean, _index,
                                               _Members, _options,
@@ -69,6 +73,10 @@ H1_ARRAYS = 64
 H1_ARRAY_ELEMS = 1 << 20
 H1_VICTIMS = 8
 H1_GROUPS = 4
+# The mask probe's burst: this many leases to each of at most
+# H1_PROBE_RAYLETS survivors whose views mask a victim.
+H1_PROBE_LEASES = 32
+H1_PROBE_RAYLETS = 4
 H2_TASKS = 1_000
 H2_ACTORS = 64
 H2_NAMED = 16
@@ -170,9 +178,14 @@ def heartbeat_death(device="cuda", n_tasks=H1_TASKS, n_arrays=H1_ARRAYS,
         kill_at = len(kept) // 4
         killed = {}
         refs = []
+        probe = _MaskProbe(
+            gcs, [r for r in raylets if r.node_id not in victim_ids],
+            make_specs(names, demand, rng.choice(
+                np.flatnonzero(fits), size=H1_PROBE_LEASES)))
         t0 = time.perf_counter()
         for j, i in enumerate(kept):
             if j == kill_at:
+                probe.start()
                 for v in victims:
                     killed[v.node_id] = time.monotonic()
                     cluster.kill_node(v)
@@ -183,6 +196,7 @@ def heartbeat_death(device="cuda", n_tasks=H1_TASKS, n_arrays=H1_ARRAYS,
         bound_s = (get_config().num_heartbeats_timeout + 2) * period
         _wait(lambda: victim_ids <= set(gcs.node_manager.dead_nodes),
               30, "H1: every victim's death")
+        probed = probe.join(60)
         to_suspect, to_dead = [], []
         for v in victims:
             states = published.get(v.node_id.binary(), [])
@@ -257,6 +271,7 @@ def heartbeat_death(device="cuda", n_tasks=H1_TASKS, n_arrays=H1_ARRAYS,
                "tasks_per_s": len(kept) / wall,
                "gcs_loop": gcs_loop,
                "gcs_loop_lag_max_ms": _ms(gcs.loop.lag_max_s),
+               "mask_probe": probed,
                "submitter": dict(core.task_submitter.submitter_stats)}
     finally:
         env.close()
@@ -280,6 +295,90 @@ def heartbeat_death(device="cuda", n_tasks=H1_TASKS, n_arrays=H1_ARRAYS,
                masked_ticks=masked_ticks,
                masked_placements=masked_placements)
     return out
+
+
+class _MaskProbe:
+    """H1's own burst under the mask.  A thread waits for the GCS to
+    publish a node SUSPECT, then checks the survivors' views every 10 ms
+    (a SUSPECT reaches them with the next resource broadcast); each
+    survivor whose view masks a node gets ``specs`` as one lease batch,
+    up to ``H1_PROBE_RAYLETS`` of them, so that its next tick is a
+    batched solve under the mask.  Until the SUSPECT the thread only
+    waits: polling 56 views a few ms apart before it delayed the GCS's
+    heartbeat checks, and with them the deaths.  A granted worker is
+    returned at once; spillbacks and backlogs are counted, not
+    followed."""
+
+    def __init__(self, gcs, survivors, specs):
+        import queue
+        import threading
+
+        from ray_tpu_torch.gcs.pubsub import NODE_CHANNEL
+        self._survivors = survivors
+        self._specs = specs
+        self._replies = queue.Queue()
+        self._suspect = threading.Event()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="h1-mask-probe")
+        self.stats = {"raylets": 0, "leases": 0, "granted": 0,
+                      "spilled": 0, "backlog": 0, "other": 0}
+        gcs.publisher.subscribe(
+            NODE_CHANNEL, None, lambda key, msg: msg["state"] == "SUSPECT"
+            and self._suspect.set())
+
+    def start(self):
+        self._thread.start()
+
+    def _run(self):
+        sent = set()
+        deadline = time.monotonic() + 30.0
+        while not self._suspect.wait(0.05):
+            if self._stop.is_set() or time.monotonic() > deadline:
+                return
+        while (len(sent) < H1_PROBE_RAYLETS and not self._stop.is_set()
+               and time.monotonic() < deadline):
+            for r in self._survivors:
+                if r.node_id in sent or not r.cluster_view.masked_nodes():
+                    continue
+                sent.add(r.node_id)
+                self.stats["raylets"] += 1
+                self.stats["leases"] += len(self._specs)
+                r.request_worker_lease_batch(
+                    self._specs, lambda rep: self._replies.put(rep))
+                if len(sent) == H1_PROBE_RAYLETS:
+                    break
+            time.sleep(0.01)
+
+    def join(self, timeout):
+        """Stop polling, take every reply (returning the granted
+        workers) and give the counts; raises if no survivor's view
+        masked a victim, or a reply did not come."""
+        import queue
+        self._stop.set()
+        self._thread.join(timeout)
+        if not self.stats["raylets"]:
+            raise AssertionError("H1: no survivor's view masked a victim "
+                                 "before the deaths")
+        deadline = time.monotonic() + timeout
+        for _ in range(self.stats["raylets"]):
+            try:
+                rep = self._replies.get(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"H1: a probe batch was not answered "
+                                     f"({self.stats})") from None
+            for res in rep["results"]:
+                if "worker" in res:
+                    self.stats["granted"] += 1
+                    res["raylet"].return_worker(res["worker"])
+                elif "retry_at" in res:
+                    self.stats["spilled"] += 1
+                elif res.get("backlog"):
+                    self.stats["backlog"] += 1
+                else:
+                    self.stats["other"] += 1
+        return dict(self.stats)
 
 
 def _node_id(hex_id):

@@ -11,9 +11,7 @@ bridges into Tune.
 
 The device is a GPU: ``use_gpu`` and ``resources_per_worker["GPU"]``
 where the reference takes ``use_tpu`` and ``"TPU"`` (ROADMAP C.24), and
-the default backend is ``"torch"`` (C.25).  Tune is not ported yet
-(A.6.5): the trainable ``to_tune_trainable`` returns raises
-``NotImplementedError`` when called.
+the default backend is ``"torch"`` (C.25).
 """
 
 from __future__ import annotations
@@ -141,14 +139,28 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def to_tune_trainable(self, train_func: Callable) -> Callable:
-        """A Tune-compatible function trainable that would run this
-        trainer's gang inside a trial (reference trainer.py
-        to_tune_trainable).  The port has no Tune yet: calling the
-        trainable raises ``NotImplementedError`` naming ROADMAP A.6.5,
-        where the reference's raises ``ImportError`` without Tune."""
+        """A Tune-compatible function trainable that runs this trainer's
+        gang inside the trial (reference trainer.py to_tune_trainable):
+        rank 0's reports reach ``tune.report``."""
+        executor_args = self._executor._worker_args
+        backend = self._executor._config
 
         def trainable(config):
-            raise NotImplementedError(
-                "Trainer.to_tune_trainable: Tune is not ported yet "
-                "(ROADMAP A.6.5)")
+            from ray_tpu_torch import tune
+            executor = BackendExecutor(backend, **executor_args)
+            executor.start()
+            try:
+                executor.start_training(train_func, config)
+                while True:
+                    results = executor.get_next_results()
+                    if results is None:
+                        break
+                    reports = [r.data for r in results
+                               if r.type == "report"]
+                    if reports:
+                        tune.report(**reports[0])
+                    if all(r.type == "done" for r in results):
+                        break
+            finally:
+                executor.shutdown()
         return trainable

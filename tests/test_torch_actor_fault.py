@@ -87,8 +87,23 @@ def case_restart_on_node_death(env, how):
     first = env.node_of(env.pkg.get(a.ping.remote(), timeout=10))
     env.add_node("replacement", 2, {"spot": 1})
     env.broadcast()
+    # The states the manager publishes for the actor from the drop on.
+    published = []
+    channel = importlib.import_module(f"{env.name}.gcs.pubsub").ACTOR_CHANNEL
+    env.cluster.gcs.publisher.subscribe(
+        channel, a._actor_id.binary(),
+        lambda _key, info: published.append(info["state"]))
     _drop(env, victim, how)
     wait_until(lambda: _dead(env, victim), timeout=15, what="the death")
+    # The outcome is decided by what the manager publishes after the
+    # death: the restart (ALIVE) or a burial (DEAD: the reference's
+    # second report of a graceful removal spends the restart again,
+    # ROADMAP C.13).  Wait for it: under load either can land after a
+    # fixed ping window.  A buried actor stays dead to the driver even
+    # if the restart posted first places it again later, so the
+    # outcome's state is DEAD once a DEAD was published.
+    wait_until(lambda: "ALIVE" in published or "DEAD" in published,
+               timeout=30, what="the restart or the burial")
     deadline = time.monotonic() + 15
     node = None
     while time.monotonic() < deadline:
@@ -99,7 +114,8 @@ def case_restart_on_node_death(env, how):
         except env.pkg.exceptions.RayTpuError:
             time.sleep(0.1)
     actor = env.cluster.gcs.actor_manager.get_actor(a._actor_id)
-    return first, node, actor.state, actor.num_restarts
+    state = "DEAD" if "DEAD" in published else actor.state
+    return first, node, state, actor.num_restarts
 
 
 def case_no_restart_becomes_dead(env, how):

@@ -19,6 +19,10 @@ JAX package's, on the CPU.
   after ``kill_node``.
 * One lease burst at a raylet whose view masks a suspect node: the
   JAX package's replies, tick by tick, and none on the masked node.
+* The port's own: the heartbeat timer's catch-up, the resource round's
+  re-arm, and two repairs of ROADMAP C.33: leases a tick puts back after
+  its raylet's kill are answered, and a task a killed node's thread
+  submits is leased on a live raylet.
 
 Every comparison is exact.  The heartbeats run at the defaults (100 ms,
 suspect at 15 missed, dead at 30) in the end-to-end cases.
@@ -463,6 +467,82 @@ def test_resource_round_rearms_after_its_end(monkeypatch):
         loop.stop()
     gaps = [b[0] - a[1] for a, b in zip(spans, spans[1:])]
     assert min(gaps) >= 0.05, gaps
+
+
+def test_lease_a_tick_puts_back_after_the_kill_is_answered_in_the_port(
+        monkeypatch):
+    """A raylet killed while its loop is inside a tick: ``kill`` stops
+    the loop (giving up after 2 s), answers the queued leases "node
+    dead", and the tick, finishing later, puts back the leases it had
+    popped.  Those are answered "node dead" at the tick's end (ROADMAP
+    C.33); before, they waited for a tick that never came, and the
+    submitter's class with them."""
+    from ray_tpu_torch._private import ids, task_spec
+    from ray_tpu_torch._private.cluster import Cluster
+    from ray_tpu_torch.scheduler import torch_backend
+    entered, release = threading.Event(), threading.Event()
+
+    def stuck_solve(self, view, specs):
+        entered.set()
+        assert release.wait(30), "the test never released the tick"
+        return [None] * len(specs)
+    monkeypatch.setattr(torch_backend.DeviceRuntimeSolver, "solve",
+                        stuck_solve)
+    cluster = Cluster(device="cpu")
+    try:
+        raylet = cluster.add_node({"CPU": 1.0}, node_name="victim")
+        replies = []
+        owner = ids.WorkerID.from_random()
+        for _ in range(2):
+            spec = task_spec.make_spec(
+                job_id=ids.JobID.from_int(1), owner_id=owner,
+                function_id=ids.FunctionID.from_random(),
+                function_name="noop", args=[], num_returns=1,
+                resources={"CPU": 1.0})
+            raylet.request_worker_lease(spec, replies.append)
+        assert entered.wait(10), "no batched tick started"
+        cluster.kill_node(raylet)
+        release.set()
+        wait_until(lambda: len(replies) == 2, 10, "both replies")
+    finally:
+        release.set()
+        cluster.shutdown()
+    assert replies == [{"rejected": True, "reason": "node dead"}] * 2
+
+
+def _seven():
+    return 7
+
+
+def test_a_task_submitted_on_a_killed_nodes_thread_runs_in_the_port():
+    """A worker thread of a killed node (finishing its task, or failing
+    its queued ones) submits or re-leases a task: its local raylet is
+    dead, so the lease is rejected "node dead" and bounces.  The bounce's
+    retry is scheduled on a live raylet's loop, and the task runs on the
+    head (ROADMAP C.33); before, it was scheduled on the dead raylet's
+    stopped loop, and the task was lost."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private import worker_context
+    from ray_tpu_torch._private.worker import global_worker
+    ray_tpu_torch.init(num_cpus=2, device="cpu")
+    try:
+        cluster = global_worker().cluster
+        victim = cluster.add_node({"CPU": 1.0}, node_name="victim")
+        cluster.kill_node(victim)
+        seven = ray_tpu_torch.remote(_seven)
+        refs = []
+
+        def on_the_dead_node():
+            worker_context.set_context(
+                worker_context.ExecutionContext(node=victim))
+            refs.append(seven.remote())
+        thread = threading.Thread(target=on_the_dead_node)
+        thread.start()
+        thread.join(10)
+        assert not thread.is_alive() and len(refs) == 1
+        assert ray_tpu_torch.get(refs[0], timeout=20) == 7
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def test_no_port_thread_survives_shutdown():

@@ -1,14 +1,15 @@
 """The port's ml (``ray_tpu_torch.ml``: preprocess -> train -> checkpoint
 -> predict) against the JAX package's, on the CPU.
 
-Each case of ``tests/test_ml.py`` but ``TestTuner`` runs once under each
-package's ``init`` (the port's with ``device="cpu"``) on the same
-inputs, and the two outcomes must be equal: the values, or the error's
-type and message.  Least-squares fits compare within 1e-9 (float64 on
-both sides, ``np.linalg.lstsq``); everything else exactly.  The port's
-``Tuner`` is a stand-in until Tune is ported (ROADMAP A.6.5): its
-``fit`` raises, pinned by a test ending in ``_in_the_port``.  The last
-test checks that no thread of the port outlives ``shutdown``.
+Each case of ``tests/test_ml.py`` runs once under each package's
+``init`` (the port's with ``device="cpu"``) on the same inputs, and the
+two outcomes must be equal: the values, or the error's type and
+message.  Least-squares fits compare within 1e-9 (float64 on both sides,
+``np.linalg.lstsq``); everything else exactly.  ``TestTuner``'s sweep
+runs through each package's Tune, and a sweep whose config moves the
+loss must pick the same best trial in both; the port's ``Tuner`` over
+the transformer at a small size is held to its trainer run directly.
+The last test checks that no thread of the port outlives ``shutdown``.
 """
 
 import importlib
@@ -208,14 +209,76 @@ def test_gpu_scaling_names_in_the_port():
     assert trainer._resources == {"GPU": 0.5}
 
 
-def test_tuner_is_a_stand_in_until_tune_in_the_port():
-    """``TestTuner`` waits for Tune (ROADMAP A.6.5): ``fit`` raises."""
-    trainer = ray_tpu_torch.ml.DataParallelTrainer(
-        lambda config: None, scaling_config={"num_workers": 1})
-    tuner = ray_tpu_torch.ml.Tuner(trainer, param_space={"noise": [0, 1]},
-                                   metric="loss", mode="min")
-    with pytest.raises(NotImplementedError, match="A.6.5"):
-        tuner.fit()
+def case_tuner_sweep_picks_best(p):
+    """``TestTuner.test_sweep_picks_best``: the param_space overlays the
+    trainer's config in each trial."""
+    tune = importlib.import_module(f"{p.name}.tune")
+    trainer = p.ml.DataParallelTrainer(
+        _linear_loop_for(p.name), datasets={"train": _table(p)},
+        scaling_config={"num_workers": 1})
+    analysis = p.ml.Tuner(trainer,
+                          param_space={"noise": tune.grid_search([0, 1])},
+                          metric="loss", mode="min").fit()
+    return analysis.best_config, sorted(
+        (t.config["noise"], t.status, round(t.last_result["loss"], 9))
+        for t in analysis.trials)
+
+
+def _offset_loop_for(name):
+    """The least-squares loop with ``config["offset"]`` added to its
+    loss, reported per step: the sweep's best trial is decided by the
+    config."""
+    inner = _linear_loop_for(name)
+
+    def loop(config):
+        session = importlib.import_module(f"{name}.train.session")
+        loss = inner(config)
+        session.report(loss=loss + config["offset"], step=1)
+        return loss
+    return loop
+
+
+def case_tuner_config_decides_best(p):
+    tune = importlib.import_module(f"{p.name}.tune")
+    trainer = p.ml.DataParallelTrainer(
+        _offset_loop_for(p.name), datasets={"train": _table(p)},
+        train_loop_config={"offset": 100.0},
+        scaling_config={"num_workers": 2})
+    analysis = p.ml.Tuner(
+        trainer, param_space={"offset": tune.grid_search([3.0, 0.5, 2.0])},
+        metric="loss", mode="min").fit()
+    return analysis.best_config, sorted(
+        (t.config["offset"], round(t.last_result["loss"], 9),
+         t.last_result["step"]) for t in analysis.trials)
+
+
+@pytest.mark.parametrize("case", [case_tuner_sweep_picks_best,
+                                  case_tuner_config_decides_best],
+                         ids=lambda c: c.__name__)
+def test_tuner_matches_jax(case):
+    want, got = both(case)
+    assert got == want and got[0] == "value"
+    if case is case_tuner_config_decides_best:
+        assert got[1][0] == {"offset": 0.5}
+        assert [x[0] for x in got[1][1]] == [0.5, 2.0, 3.0]
+
+
+def test_tuner_over_the_model_matches_direct_runs():
+    """The port's ``Tuner`` over ``DataParallelTrainer`` of the
+    transformer at a small size (``profile_serve.tune_model``, N1's
+    function on the CPU): each trial's loss equals its trainer run
+    directly, and ``best_config`` is the lower loss's."""
+    import torch
+
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.tools import profile_serve
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_layers=2,
+                            n_heads=4, d_ff=256, max_seq_len=64,
+                            dtype=torch.float32)
+    out = profile_serve.tune_model("cpu", cfg=cfg, seq=32)
+    assert out["trials"] == 2 and out["steps"] == 2
+    assert out["loss_err"] == 0.0
+    assert set(out["losses"]) == {str(lr) for lr in profile_serve.N1_LRS}
 
 
 def test_no_port_thread_survives_shutdown():

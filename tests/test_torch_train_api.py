@@ -12,8 +12,9 @@ the same least-squares step.  ``test_torch_backend_real_process_group``
 needs process workers, which wait for A.4b.9; its route is held here
 with a worker group whose workers report other processes.  Then the
 port's divergences, each pinned by a test ending in ``_in_the_port``:
-the GPU names (C.24), the default backend (C.25), checkpoints as host
-forms (C.27) and Tune's stand-in (A.6.5).  A test marked ``gpu`` checks
+the GPU names (C.24), the default backend (C.25) and checkpoints as host
+forms (C.27).  ``to_tune_trainable``'s trainable runs a sweep through
+each package's Tune, and the sweeps must be equal.  A test marked ``gpu`` checks
 a checkpoint of CUDA tensors on the card.  The last test checks that no
 thread of the port outlives ``shutdown``.
 """
@@ -462,13 +463,34 @@ def test_checkpoints_hold_host_forms_in_the_port(tmp_path):
     assert torch.equal(back["t"], torch.ones(2))
 
 
-def test_to_tune_trainable_raises_until_tune_in_the_port():
-    """Calling the trainable raises ``NotImplementedError`` naming A.6.5,
-    where the reference's raises ``ImportError`` without Tune."""
-    trainer = ray_tpu_torch.train.Trainer(backend="base", num_workers=1)
-    trainable = trainer.to_tune_trainable(lambda config: None)
-    with pytest.raises(NotImplementedError, match="A.6.5"):
-        trainable({"x": 1})
+def case_to_tune_trainable_sweep(p):
+    """The trainable of ``to_tune_trainable`` swept over a grid by each
+    package's Tune: each trial runs the trainer's gang and reports rank
+    0's reports."""
+    train = p.train
+    tune = importlib.import_module(f"{p.name}.tune")
+
+    def train_func(config):
+        for i in range(3):
+            train.report(score=config["x"] * 2 + i, rank=train.world_rank(),
+                         world=train.world_size())
+
+    trainer = train.Trainer(backend="base", num_workers=2)
+    trainable = trainer.to_tune_trainable(train_func)
+    trainer.shutdown()
+    analysis = tune.run(trainable, config={"x": tune.grid_search([1, 4])},
+                        metric="score", mode="max")
+    return (sorted((t.config["x"], t.status, t.last_result["score"],
+                    t.last_result["rank"], t.last_result["world"],
+                    t.last_result["training_iteration"])
+                   for t in analysis.trials), analysis.best_config)
+
+
+def test_to_tune_trainable_sweep_matches_jax():
+    want, got = both(case_to_tune_trainable_sweep)
+    assert got == want
+    assert got == ("value", ([(1, "TERMINATED", 4, 0, 2, 3),
+                              (4, "TERMINATED", 10, 0, 2, 3)], {"x": 4}))
 
 
 @pytest.mark.gpu
