@@ -328,7 +328,30 @@ every count read just before and just after the path it counts):
       once, each 1 worker of ``{"CPU": 1, "GPU": 0.5}`` and 2 steps of
       L2's batch, each trial's loss held to the same trainer run
       directly, ``best_config`` that of the lower loss; the trials'
-      walls and the sweep's flash and ``class_fill`` launches.
+      walls and the sweep's flash and ``class_fill`` launches;
+
+and the RL trainers, Workflow and the Pool
+(``ray_tpu_torch.tools.profile_rllib``; counts read just before and
+just after each):
+
+  Q1. ``rllib.PPOTrainer`` at the reference's ``DEFAULT_CONFIG`` (2
+      rollout workers of 256 steps, 6 epochs of minibatches of 128,
+      hidden (64, 64)) with the learner and the workers' policies on the
+      card, 3 ``train()`` iterations, each one's first SGD step held to
+      the same step on the CPU (loss within 1e-5 relative, weights within
+      1e-4); seconds an iteration and env steps/s without the holds' time,
+      ms an SGD step and its
+      device operations, the workers' creation's ``class_fill`` launches;
+  Q2. ``DQNTrainer`` at its ``DEFAULT_CONFIG`` up to the first
+      ``train()`` that learns, its first TD update held to the CPU's, and
+      ``IMPALATrainer`` at its own for one ``train()``, its first V-trace
+      update held to the CPU's and ``compute_vtrace`` on the card at
+      T 128 held to ``tests/test_rllib.py``'s numpy oracle;
+  W1. a workflow of 16 steps fanned in and chained, each a task leased
+      through the raylets, a virtual actor's durable counter reloaded, a
+      resume that skips a finished step, and
+      ``util.multiprocessing.Pool(4).map`` over 256 items, every output
+      held to the plain Python result.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -2332,6 +2355,97 @@ def phase_tune_model(cf, fa):
     return out
 
 
+def _check_tick_launches(name, launches):
+    """Every ``class_fill`` launch of the phase is a batched tick's."""
+    if launches["class_fill"] != launches["batched_ticks"]:
+        raise AssertionError(f"{name}: class_fill launched "
+                             f"{launches['class_fill']} times for "
+                             f"{launches['batched_ticks']} batched ticks")
+
+
+def phase_ppo(cf, fa):
+    """Q1: ``profile_rllib.ppo`` on the card (its module docstring); its
+    checks run inside.  The counts are set to 0 before it."""
+    from ray_tpu_torch.tools import profile_rllib as prl
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    _zero(cf, fa)
+    out = prl.ppo("cuda")
+    check_no_threads("Q1")
+    n = out["launches"]
+    _check_tick_launches("Q1", n)
+    held = out["held"]
+    log(f"[Q1] PPO at DEFAULT_CONFIG (2 workers x 256 steps, 6 epochs of "
+        f"128, hidden (64, 64)), learner and workers on the card: "
+        f"{', '.join(f'{s:.3f}' for s in out['s_per_iter'])} s an "
+        f"iteration, {', '.join(f'{v:.0f}' for v in out['env_steps_per_s'])} "
+        f"env steps/s (the holds' {out['hold_s']:.3f} s taken out); "
+        f"{out['sgd_steps_per_iter']} SGD steps an iteration, "
+        f"{out['sgd_step_ms_mean']:.3f} ms each (p50 "
+        f"{out['sgd_step_ms_p50']:.3f}), {out['sgd_step_device_ops']:.0f} "
+        f"device operations and {out['sgd_step_device_ms']:.4f} device ms a "
+        f"step; each iteration's first step against the CPU: loss within "
+        f"{max(h['loss_rel_err'] for h in held):.2e} (tolerance "
+        f"{prl.LOSS_RTOL}), weights within "
+        f"{max(h['weight_err'] for h in held):.2e} (tolerance "
+        f"{prl.WEIGHT_ATOL}); mean episode reward "
+        f"{[round(r, 2) for r in out['episode_reward_mean']]}; launches: "
+        f"class_fill {out['creation_launches']['class_fill']} for the "
+        f"workers' creation, {n['class_fill']} in the phase (= "
+        f"{n['batched_ticks']} batched ticks)")
+    return out
+
+
+def phase_dqn_impala(cf, fa):
+    """Q2: ``profile_rllib.dqn_impala`` on the card (its module
+    docstring); its checks run inside.  The counts are set to 0 before
+    it."""
+    from ray_tpu_torch.tools import profile_rllib as prl
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    _zero(cf, fa)
+    out = prl.dqn_impala("cuda")
+    check_no_threads("Q2")
+    n = out["launches"]
+    _check_tick_launches("Q2", n)
+    d, i = out["dqn"], out["impala"]
+    log(f"[Q2] DQN at DEFAULT_CONFIG: {d['iterations']} train() to the "
+        f"first that learns ({d['timesteps_total']} transitions), "
+        f"{', '.join(f'{s:.3f}' for s in d['s_per_iter'])} s each; "
+        f"{d['sgd_steps']} TD updates of {d['td_step_ms_mean']:.3f} ms, the "
+        f"first within {d['held'][0]['loss_rel_err']:.2e} of the CPU's loss "
+        f"and {d['held'][0]['weight_err']:.2e} of its weights.  IMPALA at "
+        f"DEFAULT_CONFIG: one train() of {i['updates']} fragments in "
+        f"{i['s_per_iter']:.3f} s, {i['env_steps_per_s']:.0f} env steps/s, "
+        f"{i['update_ms_mean']:.3f} ms a V-trace update, the first within "
+        f"{i['held'][0]['loss_rel_err']:.2e} of the CPU's loss and "
+        f"{i['held'][0]['weight_err']:.2e} of its weights; compute_vtrace "
+        f"on the card at T {i['vtrace_T']} within {i['vtrace_rel_err']:.2e} "
+        f"of the numpy oracle (tolerance 1e-5); launches: class_fill "
+        f"{n['class_fill']} (= {n['batched_ticks']} batched ticks)")
+    return out
+
+
+def phase_workflow_pool(cf, fa):
+    """W1: ``profile_rllib.workflow_pool`` on the card cluster (its module
+    docstring); its checks run inside.  The counts are set to 0 before
+    it."""
+    from ray_tpu_torch.tools import profile_rllib as prl
+    from ray_tpu_torch.tools.profile_objects import check_no_threads
+    _zero(cf, fa)
+    out = prl.workflow_pool("cuda")
+    check_no_threads("W1")
+    n = out["launches"]
+    _check_tick_launches("W1", n)
+    log(f"[W1] workflow: {out['fan_in']} steps fanned in and chained in "
+        f"{out['fan_in_s']:.3f} s, a durable counter over "
+        f"{out['counter_calls']} calls and a reload in "
+        f"{out['counter_s']:.3f} s, a resume past a finished step in "
+        f"{out['resume_s']:.3f} s; Pool({out['pool']}).map over "
+        f"{out['items']} items in {out['pool_map_s']:.3f} s; every output "
+        f"equal to the plain result; launches: class_fill {n['class_fill']} "
+        f"(= {n['batched_ticks']} batched ticks)")
+    return out
+
+
 # Ring attention over a one-rank sp group against full_attention on the
 # card: float32 within 1e-5; bf16 within 2**-6 (one bf16 ulp at the
 # largest outputs, in [2, 4)): the ring rounds its unnormalised
@@ -2451,7 +2565,12 @@ def main() -> int:
                  "serve.replica", "serve.router", "tune", "tune.analysis",
                  "tune.sample", "tune.schedulers", "tune.suggest",
                  "tune.trainable", "tune.trial", "tune.trial_runner",
-                 "tune.tune", "tools.profile_serve"):
+                 "tune.tune", "tools.profile_serve", "rllib", "rllib.env",
+                 "rllib.policy", "rllib.replay_buffer",
+                 "rllib.rollout_worker", "rllib.ppo", "rllib.dqn",
+                 "rllib.impala", "workflow", "workflow.storage",
+                 "workflow.execution", "workflow.event_listener",
+                 "util.multiprocessing", "tools.profile_rllib"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
@@ -2530,6 +2649,15 @@ def main() -> int:
                              f"{serve_class_fill}, the flash forward "
                              f"{serve_fwd} and its backward {serve_bwd} "
                              "times")
+    q1 = phase_ppo(cf, fa)
+    q2 = phase_dqn_impala(cf, fa)
+    w1 = phase_workflow_pool(cf, fa)
+    library_class_fill = (q1["launches"]["class_fill"] +
+                          q2["launches"]["class_fill"] +
+                          w1["launches"]["class_fill"])
+    if library_class_fill < 1:
+        raise AssertionError("Q1, Q2 and W1 launched class_fill "
+                             f"{library_class_fill} times")
     # P1-P3: the same model on a mesh of one (the machine has one card, and
     # NCCL puts no two ranks on one device: no multi-rank number exists).
     import shutil
@@ -2578,7 +2706,7 @@ def main() -> int:
                      g1["launches"] + a1["launches"] + h1["launches"] +
                      h2["launches"] + k1["launches"] + k2["launches"] +
                      d1["launches"] + u1["launches"] + air_class_fill +
-                     serve_class_fill),
+                     serve_class_fill + library_class_fill),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -2721,6 +2849,9 @@ def main() -> int:
                     "serve_model": s1,
                     "autoscale": s2,
                     "tune_model": n1,
+                    "ppo": q1,
+                    "dqn_impala": q2,
+                    "workflow_pool": w1,
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "runtime": r1["launches"],
@@ -2758,7 +2889,10 @@ def main() -> int:
                                      "predict": l2["launches_predict"]},
                                  "serve_model": s1["launches"],
                                  "autoscale": s2["launches"],
-                                 "tune_model": n1["launches"]}},
+                                 "tune_model": n1["launches"],
+                                 "ppo": q1["launches"],
+                                 "dqn_impala": q2["launches"],
+                                 "workflow_pool": w1["launches"]}},
                    default=str))
     log(json.dumps({"kernels": kernels}))
     log(smi)

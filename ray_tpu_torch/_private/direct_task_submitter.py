@@ -32,6 +32,15 @@ raylet (rejected again) or ride its stopped loop's timers (never fired),
 and the task was lost.  They go to ``_live_raylet``: the local raylet
 while it lives, else the cluster's head node.
 
+Divergence on a stopped worker (ROADMAP C.36): ``_push`` pushes no task
+to a worker its node's kill stopped.  Such a worker finishes its task,
+and its reuse (``_on_worker_idle``) would hand it the class's next task,
+which fails unrun and spends a retry: a task that several stopped
+workers took in turn failed for good.  The port puts the task back at
+the head of its class's queue, gives the lease back and leases anew,
+spending no retry, as for a dead grant.  The reference pushes it, and
+the task waits unanswered in the stopped worker's queue.
+
 Parity: reference ``src/ray/core_worker/transport/direct_task_transport.cc``
 — per-``SchedulingKey`` queues (direct_task_transport.h:53-57), worker lease
 reuse (``OnWorkerIdle`` .cc:157), new lease requests capped per scheduling
@@ -523,6 +532,13 @@ class DirectTaskSubmitter:
 
     # ---- dispatch -------------------------------------------------------
     def _push(self, spec: TaskSpec, worker, raylet, key: int):
+        if _worker_dead(worker):
+            # Stopped since its lease (C.36): the task never reaches it.
+            with self._lock:
+                self._keys[key].queue.appendleft(spec)
+            raylet.return_worker(worker, disconnect=True)
+            self._pump(key)
+            return
         nid = getattr(worker, "node_id", None)
         wid = getattr(worker, "worker_id", None)
         nid_hex = nid.hex() if nid is not None else ""

@@ -51,6 +51,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 from typing import Callable, Dict, Optional
 
 from ray_tpu_torch._private.cluster_task_manager import ClusterTaskManager
@@ -146,6 +147,7 @@ class Raylet:
         # (a false death on a loaded host).
         self.heartbeat_errors = 0
         self._hb_stop = threading.Event()
+        self._hb_fence = threading.Lock()
         self._hb_thread = None
         if cluster is not None:
             self._hb_thread = threading.Thread(
@@ -174,10 +176,17 @@ class Raylet:
         }
 
     def _heartbeat_loop(self, period_s: float):
-        while not self._dead:
+        while True:
+            # Stamped under the fence that ``kill`` takes: no beat
+            # stamped after the kill is sent (ROADMAP C.33).
+            with self._hb_fence:
+                if self._dead:
+                    return
+                sent_at = time.monotonic()
             try:
                 # The GCS is read at every beat: a restart rebinds it.
-                self.cluster.gcs.heartbeat_manager.heartbeat(self.node_id)
+                self.cluster.gcs.heartbeat_manager.heartbeat(self.node_id,
+                                                             sent_at)
             except Exception:
                 # A failing beat looks like a healthy one until the node
                 # is declared dead: count it and log it.
@@ -382,9 +391,10 @@ class Raylet:
         leases it held queued are rejected as "node dead", and the
         executor threads stop after their current task (a thread cannot
         be stopped inside one)."""
-        if self._dead:
-            return
-        self._dead = True
+        with self._hb_fence:
+            if self._dead:
+                return
+            self._dead = True
         self._hb_stop.set()
         self.loop.stop()
         self.cluster_task_manager.reject_all("node dead")

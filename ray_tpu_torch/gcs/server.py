@@ -29,6 +29,16 @@ either.  A death is declared (and published)
 there, and the cascade (the resource view, the placement groups, the
 listeners) is posted to the GCS loop.  The reference checks on the GCS
 loop, by a timer that drifts.
+
+Divergence (ROADMAP C.33, C.34): a raylet stamps each beat when it sends
+it (``heartbeat(node_id, sent_at)``), and ``Raylet.kill`` fences the
+stamp, so no beat stamped after a kill reaches the GCS.  A node has
+missed the checks run since its newest stamp, so a beat sent before a
+kill and landing after it is no sign of life after the kill.  A node is
+dead at a check that makes ``num_heartbeats_timeout`` misses, or all but
+``HEARTBEAT_LOST_CHECKS`` of them once its stamp is that many periods
+old by the clock.  The reference resets the count at every beat's
+arrival.
 Left out until their items: the timeline store, which has no producer
 before the remote node hosts (A.4b.9), and the flight recorder (A.4b.7).  Where the reference notes a failed raylet poll, broadcast or
 death listener on its debug plane (``swallow.noted``), this GCS logs it
@@ -40,6 +50,7 @@ they iterate under their locks and call out after releasing them.
 
 from __future__ import annotations
 
+import collections
 import logging
 import os
 import random
@@ -67,6 +78,13 @@ logger = logging.getLogger(__name__)
 #: counted whole, a longer one (a pause of the process, which stops the
 #: beats too: a collection, a long numpy call) as this many periods.
 HEARTBEAT_CATCH_UP = 3
+
+#: A node whose newest stamp is ``num_heartbeats_timeout`` periods old
+#: by the clock is dead at a check that counts at least this many fewer
+#: misses: the checks the grid's catch-up did not make up are not waited
+#: for (ROADMAP C.33), while a pause of the whole process, which made up
+#: none, still kills no node.
+HEARTBEAT_LOST_CHECKS = 2
 
 
 class GcsNodeManager:
@@ -231,7 +249,13 @@ class GcsHeartbeatManager:
         # _on_recovered could otherwise run first and the late
         # _on_suspect would mask a healthy node for ever.
         self._transition_lock = threading.Lock()
-        self._missed: Dict[NodeID, int] = {}
+        #: The registered nodes -> the newest stamp of their beats (their
+        #: registration's time before the first).
+        self._sent: Dict[NodeID, float] = {}
+        #: The checks' times, the newest last: a node has missed the
+        #: checks run since its stamp.
+        self._checks: collections.deque = collections.deque(
+            maxlen=self._timeout)
         self._suspect: set = set()
         self._on_death = on_node_death
         self._on_suspect = on_node_suspect
@@ -245,22 +269,29 @@ class GcsHeartbeatManager:
 
     def register(self, node_id: NodeID):
         with self._lock:
-            self._missed[node_id] = 0
+            self._sent[node_id] = time.monotonic()
             self._suspect.discard(node_id)
 
     def unregister(self, node_id: NodeID):
         with self._lock:
-            self._missed.pop(node_id, None)
+            self._sent.pop(node_id, None)
             self._suspect.discard(node_id)
 
-    def heartbeat(self, node_id: NodeID) -> bool:
-        """False for an unknown node (dead, or never registered)."""
+    def _missed(self, node_id: NodeID) -> int:
+        sent = self._sent[node_id]
+        return sum(1 for t in self._checks if t > sent)
+
+    def heartbeat(self, node_id: NodeID, sent_at: float) -> bool:
+        """False for an unknown node (dead, or never registered).
+        ``sent_at`` is the ``time.monotonic()`` at which the raylet sent
+        the beat."""
         recovered = False
         with self._lock:
-            if node_id not in self._missed:
+            if node_id not in self._sent:
                 return False
-            self._missed[node_id] = 0
-            if node_id in self._suspect:
+            self._sent[node_id] = max(self._sent[node_id], sent_at)
+            if node_id in self._suspect and \
+                    self._missed(node_id) < self._suspect_after:
                 self._suspect.discard(node_id)
                 recovered = True
         if recovered and self._on_recovered is not None:
@@ -282,12 +313,16 @@ class GcsHeartbeatManager:
         dead = []
         suspects = []
         with self._lock:
-            for node_id in list(self._missed):
-                self._missed[node_id] += 1
-                missed = self._missed[node_id]
-                if missed >= self._timeout:
+            now = time.monotonic()
+            self._checks.append(now)
+            silent_s = self._timeout * self._period_s
+            for node_id in list(self._sent):
+                missed = self._missed(node_id)
+                if missed >= self._timeout or (
+                        now - self._sent[node_id] >= silent_s and
+                        missed >= self._timeout - HEARTBEAT_LOST_CHECKS):
                     dead.append(node_id)
-                    del self._missed[node_id]
+                    del self._sent[node_id]
                     self._suspect.discard(node_id)
                 elif missed >= self._suspect_after and \
                         node_id not in self._suspect:

@@ -1,4 +1,5 @@
-"""AdamW with optax's arithmetic, for the train step.
+"""Adam and AdamW with optax's arithmetic, for the train step and the RL
+learners.
 
 The JAX package trains with ``optax.adamw(lr, b1=0.9, b2=0.95,
 weight_decay=0.1)`` (``ray_tpu/models/transformer.py:252``) and adds the
@@ -14,6 +15,11 @@ optax's ``init``/``update``):
     corrections ``1 - b^t`` in float32 then cast, ``u = mu_hat /
     (sqrt(nu_hat) + eps)``, ``u = u + wd p``, ``u = -lr u``;
   * the parameter becomes ``p + u``, added in float32 and rounded once.
+
+``Adam`` is ``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8, no decay),
+which the RL policies use (``ray_tpu/rllib/policy.py:62``, ``dqn.py:57``,
+``impala.py:73``): the same steps without ``u = u + wd p``.  AdamW is
+Adam with its constants and the decay term.
 
 Why not ``torch.optim.AdamW``: it multiplies the parameter by
 ``1 - lr wd`` in place before the Adam step.  At the default lr of 3e-4
@@ -79,19 +85,17 @@ def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
                           for axes, s in sums.items()))
 
 
-class AdamW:
-    """``optax.adamw(learning_rate, b1=0.9, b2=0.95, eps=1e-8,
-    weight_decay=0.1)``'s arithmetic on a tree of tensors, with the JAX
-    package's constants (``ray_tpu/models/transformer.py:252``); see the
-    module docstring.
+class Adam:
+    """``optax.adam(learning_rate)``'s arithmetic (b1 0.9, b2 0.999, eps
+    1e-8) on a tree of tensors; see the module docstring.
 
     ``init(params)`` gives the state ``{"count", "mu", "nu"}``;
     ``update_(params, grads, state)`` applies one step in place to the
     parameters and the state."""
 
-    b1, b2, eps, weight_decay = 0.9, 0.95, 1e-8, 0.1
+    b1, b2, eps, weight_decay = 0.9, 0.999, 1e-8, 0.0
 
-    def __init__(self, learning_rate: float = 3e-4):
+    def __init__(self, learning_rate: float):
         self.learning_rate = learning_rate
 
     def init(self, params: Dict) -> Dict:
@@ -135,10 +139,23 @@ class AdamW:
             torch._foreach_add_(den, c(self.eps))
             torch._foreach_div_(u, den)
             del den
-            t = torch._foreach_mul(p, c(self.weight_decay))
-            torch._foreach_add_(u, t)
-            del t
+            if self.weight_decay:
+                t = torch._foreach_mul(p, c(self.weight_decay))
+                torch._foreach_add_(u, t)
+                del t
             torch._foreach_mul_(u, c(-self.learning_rate))
             # p + u in float32 (bf16 + bf16 is summed in float32 and
             # rounded once).
             torch._foreach_add_(p, u)
+
+
+class AdamW(Adam):
+    """``optax.adamw(learning_rate, b1=0.9, b2=0.95, eps=1e-8,
+    weight_decay=0.1)``'s arithmetic, with the JAX package's constants
+    (``ray_tpu/models/transformer.py:252``): Adam's steps plus the decay
+    term."""
+
+    b1, b2, eps, weight_decay = 0.9, 0.95, 1e-8, 0.1
+
+    def __init__(self, learning_rate: float = 3e-4):
+        super().__init__(learning_rate)

@@ -1,8 +1,8 @@
 """H1 and H2: node death by missed heartbeats and a GCS restart, on R3's
 cluster through ``ray_tpu_torch.init``.
 
-    python -m ray_tpu_torch.tools.profile_gcs [--phase h1|h2|both]
-        [--device cuda]
+    python -m ray_tpu_torch.tools.profile_gcs [--phase h1|h2|both|trace]
+        [--device cuda] [--runs N --hogs K]
 
 Both run on a ``Cluster`` of R3's 64 raylets (``build_problem(
 default_rng(7))``'s first 64 node shapes, ``profile_cluster``) under
@@ -46,6 +46,13 @@ on a wrong value.
   killed one is ALIVE again on a new worker with one restart, and its
   next call returns 1.  Reported: the restart's ms (shutdown, reload,
   reconcile, and the reconcile's actor share) and the journal's bytes.
+
+``--phase trace`` (``beat_trace``, ROADMAP C.33's diagnostic) runs H1
+``--runs`` times beside ``--hogs`` spinning processes with every beat,
+heartbeat check and kill recorded, and prints for each victim its last
+beat's stamp and landing, the checks after it and its death, in ms from
+its kill, and for each run the tasks pushed to stopped workers and the
+task failures (ROADMAP C.36).
 
 ``device="cpu"`` rehearses a phase on the plain class fill.
 """
@@ -521,6 +528,112 @@ def gcs_restart(device="cuda", n_tasks=H2_TASKS, n_actors=H2_ACTORS):
     return out
 
 
+def beat_trace(device="cuda", runs=1, hogs=2, n_tasks=1500, n_arrays=16):
+    """ROADMAP C.33's diagnostic: H1 (``heartbeat_death``) ``runs`` times
+    at a reduced depth beside ``hogs`` spinning processes of its own,
+    with every beat, check and kill recorded.  For each victim: the kill,
+    the last beat the GCS took from it (when its raylet stamped it and
+    when it landed), the checks from that landing to the death, and the
+    death, each in ms from the kill.  For the run: the tasks pushed to a
+    worker its node's kill stopped (C.36), and the task failures by
+    error with the most any one task had.  A run that fails (H1's bound,
+    or a task that failed for good) keeps its trace and its error."""
+    import collections
+    import subprocess
+    import sys
+
+    from ray_tpu_torch._private.direct_task_submitter import (
+        DirectTaskSubmitter, _worker_dead)
+    from ray_tpu_torch._private.raylet import Raylet
+    from ray_tpu_torch._private.task_manager import TaskManager
+    from ray_tpu_torch.gcs import server
+
+    cls = server.GcsHeartbeatManager
+    orig_beat, orig_tick, orig_kill = cls.heartbeat, cls._tick, Raylet.kill
+    orig_push, orig_fail = DirectTaskSubmitter._push, \
+        TaskManager.fail_or_retry
+    beats, ticks, kills, deaths = [], [], {}, {}
+    stopped, errors, per_task = [0], collections.Counter(), \
+        collections.Counter()
+
+    def beat(self, node_id, sent_at):
+        ok = orig_beat(self, node_id, sent_at)
+        beats.append((node_id, sent_at, time.monotonic(), ok))
+        return ok
+
+    def tick(self):
+        t = time.monotonic()
+        before = set(self._sent)
+        orig_tick(self)
+        ticks.append(t)
+        for node_id in before - set(self._sent):
+            deaths[node_id] = time.monotonic()
+
+    def kill(self):
+        kills.setdefault(self.node_id, time.monotonic())
+        orig_kill(self)
+
+    def push(self, spec, worker, raylet, key):
+        stopped[0] += _worker_dead(worker)
+        return orig_push(self, spec, worker, raylet, key)
+
+    def fail(self, spec, error, resubmit):
+        errors[type(error).__name__] += 1
+        per_task[spec.task_id] += 1
+        return orig_fail(self, spec, error, resubmit)
+
+    procs = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+             for _ in range(hogs)]
+    cls.heartbeat, cls._tick, Raylet.kill = beat, tick, kill
+    DirectTaskSubmitter._push, TaskManager.fail_or_retry = push, fail
+    out = []
+    try:
+        for _ in range(runs):
+            beats.clear()
+            ticks.clear()
+            kills.clear()
+            deaths.clear()
+            stopped[0] = 0
+            errors.clear()
+            per_task.clear()
+            try:
+                heartbeat_death(device, n_tasks=n_tasks, n_arrays=n_arrays)
+                error = None
+            except Exception as e:
+                error = f"{type(e).__name__}: {e}"[:300]
+            victims = []
+            for node_id, t_kill in kills.items():
+                dead = deaths.get(node_id)
+                mine = [b for b in beats if b[0] == node_id and b[3] and
+                        (dead is None or b[2] <= dead)]
+                last = max(mine, key=lambda b: b[2]) if mine else None
+                checks = [t for t in ticks if last and
+                          last[2] < t <= (dead or float("inf"))]
+                victims.append({
+                    "last_sent_ms": last and _ms(last[1] - t_kill),
+                    "last_landed_ms": last and _ms(last[2] - t_kill),
+                    "checks_after_landing": len(checks),
+                    "first_check_ms": checks and _ms(checks[0] - t_kill),
+                    "dead_ms": dead and _ms(dead - t_kill)})
+            gaps = np.diff(ticks) if len(ticks) > 1 else np.zeros(1)
+            out.append({"error": error, "victims": victims,
+                        "check_gap_max_ms": _ms(float(gaps.max())),
+                        "checks": len(ticks),
+                        "stopped_worker_pushes": stopped[0],
+                        "task_failures": dict(errors),
+                        "most_failures_of_a_task": max(per_task.values(),
+                                                       default=0)})
+    finally:
+        cls.heartbeat, cls._tick, Raylet.kill = orig_beat, orig_tick, \
+            orig_kill
+        DirectTaskSubmitter._push, TaskManager.fail_or_retry = orig_push, \
+            orig_fail
+        for p in procs:
+            p.kill()
+            p.wait()
+    return out
+
+
 PHASES = {"h1": heartbeat_death, "h2": gcs_restart}
 
 
@@ -530,7 +643,11 @@ def main(argv=None) -> int:
     from ray_tpu_torch.tools.timing import card
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", default="both",
-                        choices=("h1", "h2", "both"))
+                        choices=("h1", "h2", "both", "trace"))
+    parser.add_argument("--runs", type=int, default=3,
+                        help="--phase trace: H1 runs at full depth")
+    parser.add_argument("--hogs", type=int, default=0,
+                        help="--phase trace: spinning processes beside it")
     parser.add_argument("--device", default="cuda",
                         help="'cpu' rehearses on the plain class fill")
     args = parser.parse_args(argv)
@@ -538,6 +655,11 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             raise SystemExit("profile_gcs: needs a CUDA device")
         print(card(), flush=True)
+    if args.phase == "trace":
+        for run in beat_trace(args.device, runs=args.runs, hogs=args.hogs,
+                              n_tasks=H1_TASKS, n_arrays=H1_ARRAYS):
+            print(json.dumps({"phase": "H1 trace", **run}), flush=True)
+        return 0
     names = ("h1", "h2") if args.phase == "both" else (args.phase,)
     for name in names:
         print(json.dumps({"phase": name.upper(),

@@ -1,9 +1,9 @@
 """Utilities of the port on top of its public API (reference
 ``ray_tpu.util``): placement groups and the scheduling strategies users
 pass, and, loaded on first access, ``ActorPool``, ``Queue``,
-``collective``, ``metrics``, ``iter`` and ``queue``.  The reference's
-``multiprocessing`` and ``joblib`` are not ported (ROADMAP A.6.8) and
-raise ``AttributeError``; ``tracing`` belongs to the debug planes."""
+``collective``, ``metrics``, ``iter``, ``queue``, ``multiprocessing`` and
+``joblib`` (``dask`` is imported as ``ray_tpu_torch.util.dask``, as in
+the reference); ``tracing`` belongs to the debug planes."""
 
 from ray_tpu_torch.util.placement_group import (  # noqa: F401
     PlacementGroup, get_current_placement_group, get_placement_group,
@@ -27,7 +27,8 @@ def __getattr__(name):
     if name == "Queue":
         from ray_tpu_torch.util.queue import Queue
         return Queue
-    if name in ("collective", "metrics", "iter", "queue"):
+    if name in ("collective", "metrics", "iter", "queue", "multiprocessing",
+                "joblib"):
         import importlib
         return importlib.import_module(f"ray_tpu_torch.util.{name}")
     raise AttributeError(

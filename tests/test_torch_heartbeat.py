@@ -20,9 +20,14 @@ JAX package's, on the CPU.
 * One lease burst at a raylet whose view masks a suspect node: the
   JAX package's replies, tick by tick, and none on the masked node.
 * The port's own: the heartbeat timer's catch-up, the resource round's
-  re-arm, and two repairs of ROADMAP C.33: leases a tick puts back after
-  its raylet's kill are answered, and a task a killed node's thread
-  submits is leased on a live raylet.
+  re-arm, and four repairs of ROADMAP C.33: leases a tick puts back after
+  its raylet's kill are answered, a task a killed node's thread submits
+  is leased on a live raylet, a beat sent before a kill that lands
+  after it does not delay the death (with C.34, the same late beat to
+  both packages' managers: the reference restarts its count), and a
+  check after checks the grid lost reads the clock; and C.36, a worker
+  stopped by its node's kill handed no task by either package's
+  submitter, stub worker and raylet given.
 
 Every comparison is exact.  The heartbeats run at the defaults (100 ms,
 suspect at 15 missed, dead at 30) in the end-to-end cases.
@@ -120,7 +125,11 @@ def test_heartbeat_manager_callbacks_match_jax(quiet_gcs_timers, seed):
                 if op[0] == "tick":
                     run_on(loop, hb._tick)
                 elif op[0] == "beat":
-                    beats.append(hb.heartbeat(nodes[op[1]]))
+                    # The port's raylets stamp their beats: stamped at the
+                    # call, a beat clears the count as the reference's does.
+                    stamp = (time.monotonic(),) if pkg == "ray_tpu_torch" \
+                        else ()
+                    beats.append(hb.heartbeat(nodes[op[1]], *stamp))
                 elif op[0] == "register":
                     hb.register(nodes[op[1]])
                 elif op[0] == "unregister":
@@ -543,6 +552,177 @@ def test_a_task_submitted_on_a_killed_nodes_thread_runs_in_the_port():
         assert ray_tpu_torch.get(refs[0], timeout=20) == 7
     finally:
         ray_tpu_torch.shutdown()
+
+
+def test_a_beat_sent_before_the_kill_is_no_sign_of_life_in_the_port(
+        monkeypatch):
+    """A beat the victim sent just before its kill lands half a timeout
+    after it: the death still comes within ``(timeout + 2) x period`` of
+    the kill, H1's bound (ROADMAP C.33).  Before the beats were stamped,
+    the late beat reset the count when it landed, and the death came a
+    whole timeout after that."""
+    from ray_tpu_torch._private.cluster import Cluster
+    from ray_tpu_torch.gcs.pubsub import NODE_CHANNEL
+    cfg = port_config()
+    period, timeout = 0.1, 10
+    monkeypatch.setattr(cfg, "raylet_heartbeat_period_milliseconds",
+                        int(period * 1e3))
+    monkeypatch.setattr(cfg, "num_heartbeats_timeout", timeout)
+    monkeypatch.setattr(cfg, "num_heartbeats_suspect", 5)
+    cluster = Cluster(device="cpu")
+    held, release = threading.Event(), threading.Event()
+    try:
+        cluster.add_node({"CPU": 1.0}, node_name="head")
+        victim = cluster.add_node({"CPU": 1.0}, node_name="victim")
+        key = victim.node_id.binary()
+        dead_at = []
+        cluster.gcs.publisher.subscribe(
+            NODE_CHANNEL, None, lambda k, msg: dead_at.append(
+                time.monotonic()) if k == key and msg["state"] == "DEAD"
+            else None)
+        manager = cluster.gcs.heartbeat_manager
+        land = manager.heartbeat
+
+        def late(node_id, *args, **kwargs):
+            if node_id == victim.node_id and not held.is_set():
+                held.set()
+                assert release.wait(30), "the test never released the beat"
+            return land(node_id, *args, **kwargs)
+        manager.heartbeat = late
+        assert held.wait(5), "the victim sent no beat"
+        killed = time.monotonic()
+        cluster.kill_node(victim)
+        time.sleep(timeout * period / 2)
+        release.set()
+        wait_until(lambda: dead_at, 10, "the victim's death")
+    finally:
+        release.set()
+        cluster.shutdown()
+    assert dead_at[0] - killed <= (timeout + 2) * period, dead_at[0] - killed
+
+
+def test_a_check_after_lost_checks_reads_the_clock_in_the_port(
+        quiet_gcs_timers):
+    """ROADMAP C.33: checks the grid lost (a loop held past its catch-up)
+    do not delay a death.  A node whose last stamped beat is a timeout of
+    periods old is dead at the next check that counted all but
+    ``HEARTBEAT_LOST_CHECKS`` of the timeout's checks; a node as silent
+    by count but not by the clock is not."""
+    from ray_tpu_torch._private.event_loop import EventLoop
+    from ray_tpu_torch._private.ids import NodeID
+    from ray_tpu_torch.gcs.server import (HEARTBEAT_LOST_CHECKS,
+                                          GcsHeartbeatManager)
+    loop = EventLoop("gcs-lost-checks")
+    dead = []
+    node = NodeID(b"\x09" * NodeID.SIZE)
+    try:
+        hb = GcsHeartbeatManager(loop, dead.append)
+        hb._period_s = 0.05              # the clock's period; no timer runs
+        silent_s = port_config().num_heartbeats_timeout * hb._period_s
+        hb.register(node)
+        sent = time.monotonic()
+        hb.heartbeat(node, sent)
+        counted = port_config().num_heartbeats_timeout - HEARTBEAT_LOST_CHECKS
+        for _ in range(counted - 1):
+            run_on(loop, hb._tick)
+        assert time.monotonic() - sent < silent_s and not dead
+        time.sleep(max(0.0, sent + silent_s - time.monotonic()))
+        run_on(loop, hb._tick)
+    finally:
+        loop.stop()
+    assert dead == [node]
+
+
+def test_a_late_beat_does_not_restart_the_count_in_the_port(
+        quiet_gcs_timers):
+    """ROADMAP C.34: the same beats to both managers, one of them sent
+    after the second check and delivered after the fifth.  The reference
+    resets the count when it arrives (the node recovers, and dies six
+    checks after the delivery); the port counts the three checks since
+    it was sent (the node stays SUSPECT and dies three checks later)."""
+    def case(pkg):
+        ids = mod(pkg, "_private.ids")
+        loop = mod(pkg, "_private.event_loop").EventLoop(f"gcs-late-{pkg}")
+        events = []
+        node = ids.NodeID(b"\x07" * ids.NodeID.SIZE)
+        stamped = pkg == "ray_tpu_torch"
+
+        def beat(sent_at):
+            return hb.heartbeat(node, sent_at) if stamped \
+                else hb.heartbeat(node)
+        try:
+            hb = mod(pkg, "gcs.server").GcsHeartbeatManager(
+                loop, lambda n: events.append("dead"),
+                on_node_suspect=lambda n: events.append("suspect"),
+                on_node_recovered=lambda n: events.append("recovered"))
+            hb.register(node)
+            beat(time.monotonic())
+            for _ in range(2):
+                run_on(loop, hb._tick)
+            sent_at = time.monotonic()
+            for _ in range(3):
+                run_on(loop, hb._tick)
+            events.append(("landed", beat(sent_at)))
+            after = 0
+            while "dead" not in events:
+                run_on(loop, hb._tick)
+                after += 1
+            return events, after
+        finally:
+            loop.stop()
+    jax, port = both_packages(case)
+    assert jax == (["suspect", "recovered", ("landed", True), "suspect",
+                    "dead"], 6)
+    assert port == (["suspect", ("landed", True), "dead"], 3)
+
+
+class _StoppedWorker:
+    """A leased worker its node's kill stopped: it finished its task and
+    is idle, and records what is pushed to it."""
+    state = "DEAD"
+    node_id = worker_id = None
+
+    def __init__(self):
+        self.pushed = []
+
+    def push_task(self, spec, on_done):
+        self.pushed.append(spec.name)
+
+
+class _LeaseHolder:
+    def __init__(self):
+        self.returned = []
+
+    def return_worker(self, worker, disconnect=False):
+        self.returned.append(disconnect)
+
+
+def test_a_stopped_workers_lease_takes_no_task_in_the_port():
+    """ROADMAP C.36: a worker stopped by its node's kill finishes its task
+    and goes idle with the class's next task queued.  The reference's
+    submitter pushes that task to it (where it would wait unanswered);
+    the port's gives the lease back, keeps the task at the head of its
+    queue and leases anew, so the task spends no retry.  Before, the
+    task failed unrun with ``WorkerCrashedError``, spending a retry,
+    and a task that four stopped workers took in turn failed H1."""
+    from types import SimpleNamespace
+
+    def case(pkg):
+        sub = mod(pkg, "_private.direct_task_submitter").DirectTaskSubmitter(
+            SimpleNamespace(cluster=None, local_raylet=None))
+        pumped = []
+        sub._pump = pumped.append
+        key = 7
+        for name in ("next", "after"):
+            sub._keys[key].queue.append(SimpleNamespace(
+                name=name, task_id=None, scheduling_class=key))
+        worker, holder = _StoppedWorker(), _LeaseHolder()
+        sub._on_worker_idle(worker, holder, key)
+        return (worker.pushed, holder.returned,
+                [s.name for s in sub._keys[key].queue], pumped)
+    jax, port = both_packages(case)
+    assert jax == (["next"], [], ["after"], [])
+    assert port == ([], [True], ["next", "after"], [7])
 
 
 def test_no_port_thread_survives_shutdown():

@@ -11,8 +11,9 @@ and the remote pdb session run once through each package's module.  A
 remote pdb waits on a loopback port with a timeout here (the JAX
 package's waits for ever), and the session's client reads with one.
 Then the port's own: the lazy attributes of ``ray_tpu_torch.util``
-(``multiprocessing`` and ``joblib`` are not ported and raise
-``AttributeError``), and the bounds of its remote pdb.  The last test
+(``multiprocessing`` and ``joblib`` load as the reference's do;
+``tracing``, not ported, raises ``AttributeError``), and the bounds of
+its remote pdb.  The last test
 checks that no thread of the port outlives ``shutdown``.
 """
 
@@ -357,9 +358,10 @@ def test_util_lazy_attributes_in_the_port():
     from ray_tpu_torch.util.actor_pool import ActorPool
     from ray_tpu_torch.util.queue import Queue
     assert util.ActorPool is ActorPool and util.Queue is Queue
-    for name in ("collective", "metrics", "iter", "queue"):
+    for name in ("collective", "metrics", "iter", "queue", "multiprocessing",
+                 "joblib"):
         assert getattr(util, name).__name__ == f"ray_tpu_torch.util.{name}"
-    for name in ("multiprocessing", "joblib", "tracing_missing"):
+    for name in ("tracing", "tracing_missing"):
         with pytest.raises(AttributeError, match=name):
             getattr(util, name)
 
