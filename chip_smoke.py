@@ -351,7 +351,34 @@ just after each):
       through the raylets, a virtual actor's durable counter reloaded, a
       resume that skips a finished step, and
       ``util.multiprocessing.Pool(4).map`` over 256 items, every output
-      held to the plain Python result.
+      held to the plain Python result;
+
+and the runtime's worker processes (``worker_process_mode="process"``:
+children of ``python -m ray_tpu_torch._private.worker_main`` that take
+their tasks over the framed RPC; ``ray_tpu_torch.tools.profile_process``;
+counts read just before and just after each):
+
+  X1. ``init`` of 4 CPUs and 1 GPU on the card with process workers: a
+      burst of 2,000 tasks in two classes (every result its index, run
+      outside the driver's process; tasks/s, submit-to-sealed p50/p99,
+      ``class_fill`` launches equal to the batched ticks, at least one,
+      each child's ms from spawn to registration) beside the same burst
+      on thread workers; an actor of ``num_gpus=0.5`` in a worker process
+      that builds T2's model on the card from its weights as one object
+      of host forms and answers 4 forwards at 8 x 1024, each within M2's
+      5% relative RMS of the driver's forward on the same tokens (ms a
+      call beside M2's ms a forward, 8 flash launches a forward in the
+      child); inside workers a nested ``.remote``, ``put``/``get``/
+      ``wait``, an actor from a task, a user error as its own type, a
+      ``runtime_env`` env var, no JAX module, a print on the log channel
+      and ``OwnerDiedError`` after its owner's process is killed; no
+      child or thread alive after ``shutdown``;
+  X2. ``train.Trainer(backend="torch")`` over 2 worker processes of
+      ``{"GPU": 0.5}`` joined by a real gloo process group: L1's rank
+      loop with ``torch.distributed.all_reduce`` on T2's model and batch,
+      held to the whole-batch step within L1's tolerances; the step's
+      p50 and the allreduce's share beside L1's, 16 forward and 8
+      backward flash launches a step in each rank's process.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -2355,6 +2382,68 @@ def phase_tune_model(cf, fa):
     return out
 
 
+def phase_process_workers(cf, fa, m2_ms):
+    """X1: ``profile_process.process_workers`` on the card (its module
+    docstring); its checks run inside, the launch checks too.  The
+    counts are set to 0 before it; its ``class_fill`` launches are the
+    two bursts' (the driver's), its flash launches the actor's forwards
+    (each counted in the worker process that ran it)."""
+    from ray_tpu_torch.tools import profile_process as pproc
+    _zero(cf, fa)
+    out = pproc.process_workers("cuda")
+    p, t, m, a = out["process"], out["threads"], out["model"], out["api"]
+    reg = out["spawn_to_registered_ms"]
+    log(f"[X1] process workers (4 CPUs, 1 GPU): a burst of {p['tasks']} "
+        f"tasks in {p['classes']} classes on {p['worker_pids']} worker "
+        f"processes: {p['tasks_per_s']:.0f} tasks/s, submit to sealed p50 "
+        f"{p['latency_p50_ms']:.1f} ms, p99 {p['latency_p99_ms']:.1f} ms, "
+        f"{p['launches']} class_fill launches (= {p['batched_ticks']} "
+        f"batched ticks); the same burst on thread workers "
+        f"{t['tasks_per_s']:.0f} tasks/s, p50 {t['latency_p50_ms']:.1f} ms, "
+        f"p99 {t['latency_p99_ms']:.1f} ms, {t['launches']} launches; "
+        f"{out['children']} children, spawn to registered "
+        f"{', '.join(f'{x:.0f}' for x in reg)} ms.  An actor of num_gpus "
+        f"0.5 built T2's model from its weights as one object of host "
+        f"forms in {m['start_s']:.2f} s to its first reply; "
+        f"{m['forwards']} forwards at [{m['batch']}, {m['seq']}]: "
+        f"{m['call_ms_p50']:.1f} ms a call (p50; "
+        f"{m['logit_bytes'] / 1e6:.1f} MB of logits back each), "
+        f"{m['child_ms_p50']:.2f} ms a forward in the child, the driver's "
+        f"{m['driver_ms_p50']:.2f} ms, M2's {m2_ms:.2f} ms; within "
+        f"{m['max_rel_rms']:.2e} relative RMS of the driver's forward "
+        f"(tolerance {pproc.FORWARD_REL_TOL}); {m['flash_launches']} flash "
+        f"launches in the child.  In workers: nested remote, put/get/wait, "
+        f"an actor from a task, {a['nested_error']} as its own type, "
+        f"runtime_env var seen, no JAX module, a print on the log channel, "
+        f"OwnerDiedError {a['owner_died_ms']:.0f} ms after the owner's "
+        f"kill; no child or thread left")
+    return out
+
+
+def phase_process_train(cf, fa, l1):
+    """X2: ``profile_process.train_pg`` on the card (its module
+    docstring); its checks run inside.  The counts are set to 0 before
+    it; its flash launches are counted in the two rank processes."""
+    from ray_tpu_torch.tools import profile_air as pair
+    from ray_tpu_torch.tools import profile_process as pproc
+    _zero(cf, fa)
+    out = pproc.train_pg("cuda")
+    log(f"[X2] Trainer(torch) over {out['world']} worker processes of GPU "
+        f"0.5 joined by a gloo process group (all_reduce on the card's "
+        f"buffers), T2's model and batch: step p50 {out['step_ms_p50']:.1f} ms (timed steps "
+        f"{', '.join(f'{x:.1f}' for x in out['step_ms'])}), allreduce p50 "
+        f"{out['allreduce_ms_p50']:.1f} ms, share "
+        f"{out['allreduce_share_p50']:.3f}; L1 on thread workers: "
+        f"{l1['step_ms_p50']:.1f} ms, share "
+        f"{l1['allreduce_share_p50']:.3f}; {out['tokens_per_s']:.0f} "
+        f"tokens/s; gang start {out['start_s']:.2f} s; averaged gradient "
+        f"of step 1 within {out['grad_rel_err']:.2e} of the whole batch's "
+        f"(tolerance {pair.GRAD_RTOL}), losses within {out['loss_err']:.2e} "
+        f"(tolerance {pair.LOSS_ATOL}); flash launches a step "
+        f"{out['flash_per_step']} in the ranks' processes")
+    return out
+
+
 def _check_tick_launches(name, launches):
     """Every ``class_fill`` launch of the phase is a batched tick's."""
     if launches["class_fill"] != launches["batched_ticks"]:
@@ -2570,7 +2659,12 @@ def main() -> int:
                  "rllib.rollout_worker", "rllib.ppo", "rllib.dqn",
                  "rllib.impala", "workflow", "workflow.storage",
                  "workflow.execution", "workflow.event_listener",
-                 "util.multiprocessing", "tools.profile_rllib"):
+                 "util.multiprocessing", "tools.profile_rllib", "rpc",
+                 "rpc.wire", "rpc.verbs", "rpc.client", "rpc.server",
+                 "rpc.chunked", "_private.worker_pool",
+                 "_private.worker_main", "_private.client_runtime",
+                 "_private.client_service", "_private.runtime_env",
+                 "_private.log_monitor", "tools.profile_process"):
         importlib.import_module(f"ray_tpu_torch.{name}")
     from ray_tpu_torch.scheduler import policy as tpolicy
     from ray_tpu_torch.scheduler import bench as sb
@@ -2658,6 +2752,18 @@ def main() -> int:
     if library_class_fill < 1:
         raise AssertionError("Q1, Q2 and W1 launched class_fill "
                              f"{library_class_fill} times")
+    x1 = phase_process_workers(cf, fa, ms_fwd)
+    x2 = phase_process_train(cf, fa, l1)
+    process_class_fill = (x1["process"]["launches"] +
+                          x1["threads"]["launches"] + x2["class_fill"])
+    process_fwd = x1["model"]["flash_launches"] + x2["flash_forward"]
+    process_bwd = x2["flash_backward"]
+    if min(x1["process"]["launches"], process_fwd, process_bwd) < 1:
+        raise AssertionError(f"X1 and X2 launched class_fill "
+                             f"{x1['process']['launches']} times in the "
+                             f"process burst, the flash forward "
+                             f"{process_fwd} and its backward {process_bwd} "
+                             "times")
     # P1-P3: the same model on a mesh of one (the machine has one card, and
     # NCCL puts no two ranks on one device: no multi-rank number exists).
     import shutil
@@ -2706,7 +2812,8 @@ def main() -> int:
                      g1["launches"] + a1["launches"] + h1["launches"] +
                      h2["launches"] + k1["launches"] + k2["launches"] +
                      d1["launches"] + u1["launches"] + air_class_fill +
-                     serve_class_fill + library_class_fill),
+                     serve_class_fill + library_class_fill +
+                     process_class_fill),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
@@ -2724,7 +2831,7 @@ def main() -> int:
         "launches": (launches_m + t2["launches"][0] + m3["launches"] +
                      t3["launches"][0] + p1["launches"][0] +
                      p2["launches"][0] + p3["launches"][0] + air_fwd +
-                     serve_fwd),
+                     serve_fwd + process_fwd),
         "max_abs_err": f["max_abs_err"],
         "ms": f["ms"],
         "plain_ms": f["plain_ms"],
@@ -2741,7 +2848,8 @@ def main() -> int:
         "design": "wgmma+tma, one launch for dK/dV and dQ after delta's",
         "launches": (t2["launches"][1] + t3["launches"][1] +
                      p1["launches"][1] + p2["launches"][1] +
-                     p3["launches"][1] + air_bwd + serve_bwd),
+                     p3["launches"][1] + air_bwd + serve_bwd +
+                     process_bwd),
         "max_abs_err": fb["max_abs_err"],
         "ms": fb["ms"],
         "plain_ms": fb["plain_ms"],
@@ -2852,6 +2960,9 @@ def main() -> int:
                     "ppo": q1,
                     "dqn_impala": q2,
                     "workflow_pool": w1,
+                    "process_workers": x1,
+                    "process_train": {k: v for k, v in x2.items()
+                                      if k not in ("losses", "ref_losses")},
                     "launches": {"path_a": launches_a,
                                  "path_b": launches_b,
                                  "runtime": r1["launches"],
@@ -2892,7 +3003,18 @@ def main() -> int:
                                  "tune_model": n1["launches"],
                                  "ppo": q1["launches"],
                                  "dqn_impala": q2["launches"],
-                                 "workflow_pool": w1["launches"]}},
+                                 "workflow_pool": w1["launches"],
+                                 "process_workers": {
+                                     "burst": x1["process"]["launches"],
+                                     "thread_burst":
+                                         x1["threads"]["launches"],
+                                     "flash_forward":
+                                         x1["model"]["flash_launches"]},
+                                 "process_train": {
+                                     "class_fill": x2["class_fill"],
+                                     "flash_forward": x2["flash_forward"],
+                                     "flash_backward":
+                                         x2["flash_backward"]}}},
                    default=str))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -7,7 +7,9 @@ the raylet's scheduling plane (event loop, wakeup debounce, worker pool)
 and those of the GCS (storage, resource broadcast, heartbeat, task
 events and the job graph, the actor scheduler's switch) and of the task
 path (the submitter's leases, the owner's memory store, retries,
-lineage, the thread workers' start slots) and those of the object plane
+lineage, the workers' start slots and stagger, process workers' logs)
+and the wire's (dispatch pool, retries, dedup window) and those of the
+object plane
 (the node store, spilling, transfers and relay, lineage reconstruction)
 and serve's five (replica placement, the pipeline's zero-copy
 threshold, the router's retries and queue reports).
@@ -19,7 +21,8 @@ where the node stores spill, is the port's own directory under the
 process's temporary directory. The rest of that config belongs to
 modules the port does not have yet: the wire fetch's
 ``object_transfer_pipeline_depth`` and
-``object_transfer_admission_wait_s`` come with the cross-process fetch.
+``object_transfer_admission_wait_s`` come with the cross-process fetch
+(ROADMAP A.4b.9b), ``tracing_enabled`` with the tracing plane (A.4b.7a).
 """
 
 from __future__ import annotations
@@ -147,8 +150,10 @@ class Config:
     lineage_reconstruction_backoff_s: float = 0.2
 
     # ------ worker pool ------
-    #: "thread" = executor threads in the node's process (the only
-    #: mode of the port so far); "process" raises.
+    #: "thread" = executor threads in the node's process; "process" =
+    #: worker OS processes (``python -m
+    #: ray_tpu_torch._private.worker_main``) that take their tasks over
+    #: the framed RPC.
     worker_process_mode: str = "thread"
     #: Soft cap of idle workers kept alive per node (ray_config_def.h:129).
     num_workers_soft_limit: int = 64
@@ -164,8 +169,31 @@ class Config:
     num_prestart_workers: int = 0
     #: Also prestart from the submit edge, not only from dispatch.
     prestart_on_submit: bool = False
+    #: Stagger between consecutive prestarted worker starts
+    #: (milliseconds), so that a prestart storm ramps instead of
+    #: spiking; ``pop_worker`` never sleeps.
+    worker_startup_stagger_ms: float = 0.0
     #: Hard per-node worker cap.
     max_workers_per_node: int = 20_000
+    #: Mirror process workers' stdout/stderr lines onto the driver's
+    #: terminal through the ``worker_logs`` pubsub channel (reference
+    #: log_to_driver, log_monitor.py).
+    log_to_driver: bool = True
+
+    # ------ rpc ------
+    #: Dispatch threads per RpcServer; a request past them takes a
+    #: thread of its own.
+    rpc_dispatch_pool_size: int = 64
+    #: Attempts of ``RpcClient.call`` on the verbs classified retryable
+    #: in rpc/verbs.py (a timeout or a connection loss only: a remote
+    #: handler's exception is never retried).
+    rpc_retry_attempts: int = 3
+    #: Base of the exponential backoff between those attempts.
+    rpc_retry_backoff_s: float = 0.2
+    #: Server-side dedup window (entries) of the requests that carry a
+    #: client-minted dedup token: the handler of a mutating verb runs
+    #: once per token.
+    rpc_dedup_window_size: int = 512
 
     # ------ GCS ------
     #: "memory" keeps the GCS tables in memory; "file" journals them to

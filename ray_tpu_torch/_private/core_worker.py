@@ -26,9 +26,9 @@ A tensor put or returned whole is a device object (the reference's
 executing) node keeps a private copy of it on its own device (ROADMAP
 C.19), whatever its size, and the directory records the location; the
 owner's memory store holds nothing for it.
-Owner-death invalidation (``fail_owned_object``) comes with the process
-workers whose death calls it (ROADMAP A.4b.9); the tracing spans and flight
-recorder of the reference belong to the debug planes (A.4b.7).  The task
+Owner-death invalidation (``fail_owned_object``) seals ``OwnerDiedError``
+over the objects a crashed process worker put; the tracing spans and
+flight recorder of the reference belong to the debug planes (A.4b.7).  The task
 events of the submit (PENDING_ARGS_AVAIL, with the parent and the
 argument ids) and of a reconstruction (RECONSTRUCTING) go to the GCS's
 buffer (``gcs.task_events``).
@@ -478,11 +478,6 @@ class CoreWorker:
         return out
 
     def submit_task(self, spec: TaskSpec, holders=()) -> List[ObjectRef]:
-        if spec.runtime_env:
-            raise NotImplementedError(
-                "runtime_env is not supported yet: thread workers run in "
-                "the driver's environment, and process workers, which "
-                "carry one, are not ported")
         self.task_manager.add_pending_task(spec)
         del holders  # the submitted-task refs now pin the promoted args
         self.metrics["tasks_submitted"] += 1
@@ -642,6 +637,20 @@ class CoreWorker:
             if self.reference_counter.has_reference(oid):
                 self.memory_store.delete(oid)
                 self.recover_object(oid)
+
+    def fail_owned_object(self, object_id: ObjectID,
+                          error: BaseException):
+        """Owner-death invalidation: seal ``error`` over the object, so
+        that every borrower's get and wait raises instead of hanging, and
+        drop the copies that no owner stands behind (reference:
+        reference_count.cc OWNER_DIED propagation)."""
+        self.memory_store.fail(object_id, error)
+        directory = self.cluster.object_directory
+        for node_id in directory.get_locations(object_id):
+            raylet = self.cluster.raylet(node_id)
+            if raylet is not None:
+                raylet.object_store.delete(object_id)
+        directory.remove_object(object_id)
 
     # ---- free path ------------------------------------------------------
     def _free_object(self, object_id: ObjectID):

@@ -57,17 +57,16 @@ class DaemonPool:
     def stop(self, timeout: Optional[float] = 5.0) -> None:
         """Refuse new calls, drop the queued ones, and join every worker
         once its current call returns (each join bounded by
-        ``timeout``)."""
-        if self._stopped.is_set():
-            return
-        self._stopped.set()
-        while True:
-            try:
-                self._queue.get_nowait()
-            except queue.Empty:
-                break
-        for _ in self._threads:
-            self._queue.put(_STOP)
+        ``timeout``; a second call joins again)."""
+        if not self._stopped.is_set():
+            self._stopped.set()
+            while True:
+                try:
+                    self._queue.get_nowait()
+                except queue.Empty:
+                    break
+            for _ in self._threads:
+                self._queue.put(_STOP)
         for t in self._threads:
             if t is not threading.current_thread():
                 t.join(timeout=timeout)

@@ -18,13 +18,17 @@ retries it on a live node, an actor's caller after the actor's restart
 (ROADMAP C.11, C.15); the reference's executor thread stores the late
 returns on the dead node.
 
-Left out, each with the item that brings it: the runtime env applied
-around the task body (``submit_task`` raises for a non-empty one) and
-the ``util.tracing`` span (the debug planes, A.4b.7).
+A task's runtime env (env vars, import paths) is applied around its
+body, under ``runtime_env``'s lock, each env materialized once and
+cached by its hash (``uri_cache.py`` parity); a process worker gets its
+env at spawn instead.  Left out until the debug planes (A.4b.7): the
+``util.tracing`` span.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 
 from ray_tpu_torch import exceptions
@@ -86,12 +90,13 @@ def execute_task(spec: TaskSpec, node, core_worker, actor_instance=None):
     t0 = time.monotonic()
     try:
         args, kwargs = _split_args(resolve_args(spec, node, core_worker))
-        if spec.task_type == TaskType.ACTOR_TASK:
-            result = getattr(actor_instance,
-                             spec.actor_method_name)(*args, **kwargs)
-        else:
-            fn = core_worker.function_manager.load(spec.function_id)
-            result = fn(*args, **kwargs)
+        with _applied_runtime_env(spec, node):
+            if spec.task_type == TaskType.ACTOR_TASK:
+                result = getattr(actor_instance,
+                                 spec.actor_method_name)(*args, **kwargs)
+            else:
+                fn = core_worker.function_manager.load(spec.function_id)
+                result = fn(*args, **kwargs)
         if node._dead:
             # The node was killed under the task: its result never
             # reaches the owner, which retries the task elsewhere.
@@ -106,6 +111,27 @@ def execute_task(spec: TaskSpec, node, core_worker, actor_instance=None):
     finally:
         worker_context.set_context(prev)
         core_worker.record_task_metric(spec, time.monotonic() - t0)
+
+
+_env_ctx_cache: dict = {}
+_env_ctx_lock = threading.Lock()
+
+
+def _applied_runtime_env(spec: TaskSpec, node):
+    """The thread worker's application of the task's runtime env; the
+    materialized contexts are cached by the env's hash."""
+    from ray_tpu_torch._private import runtime_env as runtime_env_mod
+    renv = spec.runtime_env
+    if not renv:
+        return contextlib.nullcontext()
+    h = renv.get("_hash") or runtime_env_mod.env_hash(renv)
+    with _env_ctx_lock:
+        env_ctx = _env_ctx_cache.get(h)
+    if env_ctx is None:
+        env_ctx = runtime_env_mod.materialize(renv, node.cluster.gcs.kv)
+        with _env_ctx_lock:
+            _env_ctx_cache[h] = env_ctx
+    return runtime_env_mod.applied(env_ctx)
 
 
 class _KwMark:

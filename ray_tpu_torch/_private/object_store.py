@@ -151,6 +151,19 @@ class MemoryStore:
     def put_error(self, object_id: ObjectID, error: BaseException):
         self.put(object_id, None, error=error)
 
+    def fail(self, object_id: ObjectID, error: BaseException):
+        """Seal ``error`` over the entry, replacing any value: the
+        owner's death invalidates the object even where its bytes still
+        exist, and every borrower must observe the error (reference
+        OWNER_DIED on Get)."""
+        with self._lock:
+            entry = _Entry(data=None, error=error)
+            self._entries[object_id] = entry
+            callbacks = self._get_callbacks.pop(object_id, [])
+            self._lock.notify_all()
+        for cb in callbacks:
+            cb(entry)
+
     def contains(self, object_id: ObjectID) -> bool:
         with self._lock:
             e = self._entries.get(object_id)

@@ -95,6 +95,15 @@ def aligned_flat_buffer(nbytes: int, head) -> memoryview:
     return memoryview(raw)[shift:shift + nbytes]
 
 
+def from_received(blob) -> "SerializedObject":
+    """The object whose flat form ``blob`` came over the wire, copied
+    once into an ``aligned_flat_buffer``: its buffers are views of that
+    copy, placed as a pull places them."""
+    buf = aligned_flat_buffer(len(blob), blob)
+    copy_into_view(buf, 0, blob)
+    return SerializedObject.from_bytes(buf)
+
+
 def _as_bytes_view(b) -> memoryview:
     """A flat byte view of one out-of-band buffer (a non-contiguous
     buffer is copied first)."""

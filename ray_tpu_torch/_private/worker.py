@@ -21,10 +21,14 @@ GPU count is the caller's ``num_gpus``, else the cards that
 ``torch.cuda.device_count()`` sees when the cluster is on the card (0 on
 the CPU): the counterpart of the reference's ``_detect_tpu_chips``,
 which creates no device context either; ``get_gpu_ids`` is its
-``get_tpu_ids``.  Left out
-until their items: the remote-driver (client) path (ROADMAP A.4b.10),
-worker log mirroring and process workers (``worker_process_mode=
-"process"`` raises; A.4b.9).
+``get_tpu_ids``.
+
+With ``worker_process_mode="process"`` the head's pool prestarts
+``min(CPUs, 8)`` worker processes at ``init`` (reference
+PrestartWorkers on driver start, worker_pool.h:350), and, with
+``log_to_driver``, the driver mirrors their log lines onto its terminal;
+``shutdown`` terminates every child.  Left out until its item: the
+remote-driver (client) path, ``init(address=...)`` (ROADMAP A.4b.10).
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ class Worker:
         self.core_worker: Optional[CoreWorker] = None
         self.job_id: Optional[JobID] = None
         self.namespace: str = ""
+        #: The driver's subscription to the worker_logs channel.
+        self.log_mirror_sub: Optional[int] = None
 
 
 _global_worker: Optional[Worker] = None
@@ -93,11 +99,10 @@ def init(*, num_cpus: Optional[float] = None,
             raise RuntimeError("ray_tpu_torch.init() called twice; pass "
                                "ignore_reinit_error=True to ignore.")
         initialize_config(_system_config)
-        if get_config().worker_process_mode != "thread":
-            raise NotImplementedError(
-                "worker_process_mode="
-                f"{get_config().worker_process_mode!r}: the port runs "
-                "thread workers only; process workers are not ported")
+        mode = get_config().worker_process_mode
+        if mode not in ("thread", "process"):
+            raise ValueError(f"worker_process_mode={mode!r}: 'thread' or "
+                             "'process'")
         if _cluster is not None:
             cluster = _cluster
         else:
@@ -124,22 +129,41 @@ def init(*, num_cpus: Optional[float] = None,
         cluster.gcs.job_manager.add_job(w.job_id)
         w.connected = True
         atexit.register(_atexit_shutdown)
+        try:
+            if get_config().log_to_driver:
+                # print()s inside process workers reach this terminal.
+                from ray_tpu_torch._private.log_monitor import \
+                    mirror_worker_logs
+                w.log_mirror_sub = mirror_worker_logs(cluster.gcs.publisher)
+            if mode == "process" and cluster.head_node is not None:
+                # Worker start-up hides behind init.
+                head = cluster.head_node
+                cpus = head.local_resources.to_float_dict("total").get(
+                    "CPU", 1)
+                head.worker_pool.prestart_workers(min(int(cpus), 8))
+        except BaseException:
+            shutdown()
+            raise
         return RuntimeContextInfo(w)
 
 
 def shutdown():
-    """Detach the driver and stop the cluster: every worker thread,
-    raylet loop, pull and spill thread, and the reference counter's
-    release thread."""
+    """Detach the driver and stop the cluster: every worker thread and
+    worker process, raylet loop, pull and spill thread, and the
+    reference counter's release thread."""
     w = global_worker_or_none()
     if w is None or not w.connected:
         return
     with _init_lock:
         core, cluster, job_id = w.core_worker, w.cluster, w.job_id
+        sub, w.log_mirror_sub = w.log_mirror_sub, None
         w.connected = False
         w.cluster = None
         w.core_worker = None
         worker_context.clear_context()
+        if sub is not None:
+            from ray_tpu_torch._private.log_monitor import LOG_CHANNEL
+            cluster.gcs.publisher.unsubscribe(LOG_CHANNEL, None, sub)
         cluster.gcs.job_manager.mark_job_finished(job_id)
         core.reference_counter.close()
         cluster.shutdown()

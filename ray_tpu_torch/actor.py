@@ -14,9 +14,10 @@ included) holds them for its life (``lifetime_resources``,
 task_spec.h's placement resources against its required ones).  Options:
 ``num_cpus``, ``num_gpus``, ``memory``, ``resources``, ``max_restarts``,
 ``max_task_retries``, ``max_concurrency``, ``concurrency_groups``,
-``name``, ``namespace``, ``lifetime`` and ``scheduling_strategy`` (a
-placement-group strategy rewrites the resources to the bundle's); a
-``runtime_env`` raises, as for tasks (process workers, ROADMAP A.4b.9).
+``name``, ``namespace``, ``lifetime``, ``scheduling_strategy`` (a
+placement-group strategy rewrites the resources to the bundle's) and
+``runtime_env`` (applied around the constructor on a thread worker, the
+whole process's on a process worker, as in the reference).
 The reference's ``num_tpus`` has no counterpart here.
 """
 
@@ -31,7 +32,8 @@ from ray_tpu_torch._private import worker_context
 from ray_tpu_torch._private.executor import pack_args
 from ray_tpu_torch._private.ids import ActorID
 from ray_tpu_torch._private.task_spec import TaskType, make_spec
-from ray_tpu_torch.remote_function import _resource_dict, resolve_pg_strategy
+from ray_tpu_torch.remote_function import (_resource_dict, normalized_env,
+                                           resolve_pg_strategy)
 
 _DEFAULT_ACTOR_OPTIONS = dict(
     num_cpus=None, num_gpus=0, memory=0, resources=None,
@@ -144,11 +146,6 @@ class ActorClass:
 
     def remote(self, *args, **kwargs) -> ActorHandle:
         o = self._options
-        if o.get("runtime_env"):
-            raise NotImplementedError(
-                "runtime_env is not supported yet: thread workers run in "
-                "the driver's environment, and process workers, which "
-                "carry one, are not ported")
         w = worker_mod.global_worker()
         if not w.connected:
             # Auto-init only from the main thread (as RemoteFunction).
@@ -192,6 +189,7 @@ class ActorClass:
             placement_group_id=pg_id,
             placement_group_bundle_index=bundle_idx,
             lifetime_resources=lifetime_resources,
+            runtime_env=normalized_env(o.get("runtime_env"), w),
             borrowed_ids=borrowed,
         )
         namespace = o.get("namespace")

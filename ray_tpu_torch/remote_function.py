@@ -8,9 +8,11 @@ function; ``_remote`` (:246) exports the function, builds the task spec
 
 Options: ``num_cpus``, ``num_gpus``, ``memory``, ``resources``,
 ``num_returns``, ``max_retries``, ``retry_exceptions``,
-``scheduling_strategy`` and ``name``.  A placement-group strategy
-rewrites the task's resources to the bundle's formatted ones
-(``resolve_pg_strategy``); a ``runtime_env`` raises at submit.
+``scheduling_strategy``, ``runtime_env`` and ``name``.  A
+placement-group strategy rewrites the task's resources to the bundle's
+formatted ones (``resolve_pg_strategy``); a runtime env is validated,
+its local paths packaged into the GCS KV and its hash stamped at submit
+(``normalized_env``).
 """
 
 from __future__ import annotations
@@ -58,6 +60,15 @@ def resolve_pg_strategy(options: Dict[str, Any], resources: Dict[str, float]):
     idx = strategy.placement_group_bundle_index
     rewritten = rewrite_resources_for_bundle(resources, pg.id, idx)
     return rewritten, "DEFAULT", pg.id, idx
+
+
+def normalized_env(runtime_env, w):
+    """The runtime env packaged and hashed for the spec (packaging.py:
+    once per content, deduplicated in the GCS KV), or None."""
+    if not runtime_env:
+        return None
+    from ray_tpu_torch._private import runtime_env as runtime_env_mod
+    return runtime_env_mod.normalize(runtime_env, w.cluster.gcs.kv)
 
 
 class RemoteFunction:
@@ -123,7 +134,7 @@ class RemoteFunction:
             retry_exceptions=bool(options.get("retry_exceptions")),
             placement_group_id=pg_id,
             placement_group_bundle_index=bundle_idx,
-            runtime_env=options.get("runtime_env") or None,
+            runtime_env=normalized_env(options.get("runtime_env"), w),
             borrowed_ids=borrowed,
         )
         refs = core.submit_task(spec, holders)

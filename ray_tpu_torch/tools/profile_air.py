@@ -137,7 +137,13 @@ def dp_train_loop(config: Dict):
     (rank 0, first step, with
     ``report_grad``) the averaged flat gradient's host form.  With
     ``checkpoint``, rank 0 saves the final parameters (host forms) and
-    ``cfg``."""
+    ``cfg``.  ``allreduce``: ``"collective"`` (the default: the
+    ``util.collective`` group ``"train"`` of thread workers) or
+    ``"process_group"`` (``torch.distributed.all_reduce``, in place on
+    the device, on the process group that ``TorchConfig`` set up over
+    process workers).  Each report also carries the flash kernels'
+    launches of the step in this rank's process (``flash_forward``,
+    ``flash_backward``)."""
     from ray_tpu_torch import train
     from ray_tpu_torch.models import transformer as tt
     from ray_tpu_torch.models.optim import AdamW
@@ -166,8 +172,12 @@ def dp_train_loop(config: Dict):
         batches = [np.asarray(b[column])
                    for b in get_dataset_batches(config, "train")]
     params = state["params"]
+    route = config.get("allreduce", "collective")
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     began = time.perf_counter()
     for i, rows_np in enumerate(batches):
+        launched = (fa.flash_attention.launches,
+                    fa.flash_attention_backward.launches)
         batch = {"tokens": torch.from_numpy(
             np.ascontiguousarray(rows_np, np.int64)).to(dev)}
         t0 = time.perf_counter()
@@ -176,7 +186,7 @@ def dp_train_loop(config: Dict):
         del grads
         _sync(dev)
         t1 = time.perf_counter()
-        avg = collective.allreduce(flat, group_name="train").to(dev)
+        avg = _allreduce(flat, route, collective).to(dev)
         avg.div_(world)
         _sync(dev)
         t2 = time.perf_counter()
@@ -189,7 +199,11 @@ def dp_train_loop(config: Dict):
                   "loop_s": t3 - began,
                   "grad_elements": int(flat.numel()),
                   "shard_sha": _tokens_hash(rows_np),
-                  "params_sha": fingerprint(params)}
+                  "params_sha": fingerprint(params),
+                  "flash_forward": fa.flash_attention.launches -
+                  launched[0],
+                  "flash_backward": fa.flash_attention_backward.launches -
+                  launched[1]}
         if i == 0 and rank == 0 and config.get("report_grad"):
             report["grad"] = avg.cpu()
         del flat, avg
@@ -197,6 +211,17 @@ def dp_train_loop(config: Dict):
     if config.get("checkpoint") and rank == 0:
         train.save_checkpoint(params=params, cfg=cfg)
     return rank
+
+
+def _allreduce(flat: torch.Tensor, route: str, collective):
+    """The sum of ``flat`` over the ranks by ``route`` (``dp_train_loop``)."""
+    if route == "collective":
+        return collective.allreduce(flat, group_name="train")
+    import torch.distributed as dist
+    if route == "process_group":
+        dist.all_reduce(flat)
+        return flat
+    raise ValueError(f"allreduce route {route!r}")
 
 
 def _check_ranks(name: str, rounds: List[List[Dict]],
@@ -248,6 +273,71 @@ def _check_raylets(name, cluster):
     _check_clean(name, _tick_totals(cluster)[1])
 
 
+def hold_to_whole_batch(name: str, rounds: List[List[Dict]],
+                        tokens: np.ndarray, cfg, dev: torch.device,
+                        steps: int) -> Dict:
+    """Hold a data-parallel run's report rounds to ``make_train_step`` on
+    the whole batch from ``PARAM_SEED`` (T2's function): each rank's rows
+    its own shard, the ranks' parameters bit-equal after every step, the
+    averaged gradient of step 1 within ``GRAD_RTOL`` of the whole
+    batch's and the ranks' mean losses within ``LOSS_ATOL``.  Returns
+    the errors and both loss series."""
+    from ray_tpu_torch.models import bench as mb
+    from ray_tpu_torch.models import transformer as tt
+    from ray_tpu_torch.models.optim import leaves
+    world = len(rounds[0])
+    rows = tokens.shape[0] // world
+    shards = [[_tokens_hash(tokens[r * rows:(r + 1) * rows])
+               for r in range(world)]] * steps
+    _check_ranks(name, rounds, shards)
+    state, tx = tt.make_train_state(
+        torch.Generator(device=dev).manual_seed(mb.PARAM_SEED), cfg,
+        device=dev)
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int64)).to(dev)}
+    _, whole = tt.loss_and_grads(state["params"], batch, cfg)
+    got = rounds[0][0]["grad"].to(dev)
+    want = flat_grads(whole, cfg.dtype)
+    grad_err = 0.0
+    for g, w in zip(got.split([t.numel() for t in leaves(whole)]),
+                    want.split([t.numel() for t in leaves(whole)])):
+        err = float((g.float() - w.float()).norm() /
+                    w.float().norm().clamp_min(1e-30))
+        grad_err = max(grad_err, err)
+    if grad_err > GRAD_RTOL:
+        raise AssertionError(f"{name}: the averaged gradient of step 1 is "
+                             f"off the whole batch's by {grad_err} of its "
+                             f"norm (tolerance {GRAD_RTOL})")
+    del got, want, whole
+    step = tt.make_train_step(cfg, tx)
+    ref_losses = [float(step(state, batch)[1]["loss"]) for _ in range(steps)]
+    losses = [float(np.mean([r["loss"] for r in reports]))
+              for reports in rounds]
+    loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    if not all(np.isfinite(losses)) or loss_err > LOSS_ATOL:
+        raise AssertionError(f"{name}: the ranks' mean losses {losses} "
+                             f"against the whole batch's {ref_losses} "
+                             f"(tolerance {LOSS_ATOL})")
+    return {"grad_rel_err": grad_err, "loss_err": loss_err,
+            "losses": losses, "ref_losses": ref_losses}
+
+
+def step_times(rounds: List[List[Dict]], n_rows: int, seq: int) -> Dict:
+    """The timed steps' wall (the slower rank's; the first step is the
+    warm-up when there are more), the allreduce's ms and share, p50s and
+    tokens/s."""
+    timed = rounds[1:] if len(rounds) > 1 else rounds
+    step_ms = [max(r["step_ms"] for r in reports) for reports in timed]
+    share = [max(r["allreduce_ms"] for r in reports) / max(
+        r["step_ms"] for r in reports) for reports in timed]
+    p50 = float(np.percentile(step_ms, 50))
+    return {"step_ms": step_ms, "step_ms_p50": p50,
+            "allreduce_ms_p50": float(np.percentile(
+                [max(r["allreduce_ms"] for r in reports)
+                 for reports in timed], 50)),
+            "allreduce_share_p50": float(np.percentile(share, 50)),
+            "tokens_per_s": n_rows * seq / (p50 / 1e3)}
+
+
 def train_dp(device="cuda", cfg=None, steps=L1_STEPS, tokens=None):
     """L1 (module docstring).  ``cfg`` (``bench.CONFIG`` by default) and
     ``tokens`` (``bench.train_tokens``) shrink it for a CPU rehearsal."""
@@ -255,8 +345,6 @@ def train_dp(device="cuda", cfg=None, steps=L1_STEPS, tokens=None):
     from ray_tpu_torch import train
     from ray_tpu_torch._private.worker import global_worker
     from ray_tpu_torch.models import bench as mb
-    from ray_tpu_torch.models import transformer as tt
-    from ray_tpu_torch.models.optim import leaves
     cfg = cfg or mb.CONFIG
     dev = torch.device(device)
     tokens = (mb.train_tokens("cpu", cfg).numpy() if tokens is None
@@ -297,39 +385,7 @@ def train_dp(device="cuda", cfg=None, steps=L1_STEPS, tokens=None):
     if len(rounds) != steps:
         raise AssertionError(f"L1: {len(rounds)} report rounds for {steps} "
                              "steps")
-    rows = tokens.shape[0] // WORLD
-    shards = [[_tokens_hash(tokens[r * rows:(r + 1) * rows])
-               for r in range(WORLD)]] * steps
-    _check_ranks("L1", rounds, shards)
-
-    # The whole batch from the same seed: T2's function.
-    state, tx = tt.make_train_state(
-        torch.Generator(device=dev).manual_seed(mb.PARAM_SEED), cfg,
-        device=dev)
-    batch = {"tokens": torch.from_numpy(tokens.astype(np.int64)).to(dev)}
-    _, whole = tt.loss_and_grads(state["params"], batch, cfg)
-    got = rounds[0][0]["grad"].to(dev)
-    want = flat_grads(whole, cfg.dtype)
-    grad_err = 0.0
-    for g, w in zip(got.split([t.numel() for t in leaves(whole)]),
-                    want.split([t.numel() for t in leaves(whole)])):
-        err = float((g.float() - w.float()).norm() /
-                    w.float().norm().clamp_min(1e-30))
-        grad_err = max(grad_err, err)
-    if grad_err > GRAD_RTOL:
-        raise AssertionError(f"L1: the averaged gradient of step 1 is off "
-                             f"the whole batch's by {grad_err} of its norm "
-                             f"(tolerance {GRAD_RTOL})")
-    del got, want, whole
-    step = tt.make_train_step(cfg, tx)
-    ref_losses = [float(step(state, batch)[1]["loss"]) for _ in range(steps)]
-    losses = [float(np.mean([r["loss"] for r in reports]))
-              for reports in rounds]
-    loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
-    if not all(np.isfinite(losses)) or loss_err > LOSS_ATOL:
-        raise AssertionError(f"L1: the ranks' mean losses {losses} against "
-                             f"the whole batch's {ref_losses} (tolerance "
-                             f"{LOSS_ATOL})")
+    held = hold_to_whole_batch("L1", rounds, tokens, cfg, dev, steps)
     per_step = {k: v / steps for k, v in run.items()}
     want_fwd = WORLD * 2 * cfg.n_layers if cfg.remat else WORLD * cfg.n_layers
     if dev.type == "cuda" and (per_step["flash_forward"] != want_fwd or
@@ -338,26 +394,13 @@ def train_dp(device="cuda", cfg=None, steps=L1_STEPS, tokens=None):
         raise AssertionError(f"L1: flash launches a step {per_step}, "
                              f"expected {want_fwd} forward and "
                              f"{WORLD * cfg.n_layers} backward")
-    timed = rounds[1:] if steps > 1 else rounds
-    step_ms = [max(r["step_ms"] for r in reports) for reports in timed]
-    share = [max(r["allreduce_ms"] for r in reports) / max(
-        r["step_ms"] for r in reports) for reports in timed]
-    p50 = float(np.percentile(step_ms, 50))
     return {"steps": steps, "world": WORLD, "gpu_share": GPU_SHARE,
             "gpu_ids": gpu_ids, "start_s": start_s, "run_s": run_s,
-            "step_ms": step_ms, "step_ms_p50": p50,
-            "allreduce_ms_p50": float(np.percentile(
-                [max(r["allreduce_ms"] for r in reports)
-                 for reports in timed], 50)),
-            "allreduce_share_p50": float(np.percentile(share, 50)),
-            "tokens_per_s": tokens.shape[0] * (tokens.shape[1] - 1) /
-            (p50 / 1e3),
+            **step_times(rounds, tokens.shape[0], tokens.shape[1] - 1),
             "grad_elements": rounds[0][0]["grad_elements"],
             "grad_bytes": rounds[0][0]["grad_elements"] *
             torch.empty((), dtype=cfg.dtype).element_size(),
-            "peak_gb": peak_gb, "grad_rel_err": grad_err,
-            "loss_err": loss_err, "losses": losses,
-            "ref_losses": ref_losses, "launches": run,
+            "peak_gb": peak_gb, **held, "launches": run,
             "launches_per_step": per_step, "gang": gang}
 
 

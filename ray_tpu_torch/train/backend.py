@@ -8,8 +8,8 @@ the backend config that wires the framework's process group).
 ``TorchConfig`` is the port's backend and the default of ``Trainer``
 (ROADMAP C.25): with thread workers it takes the reference's collective
 route (a ``ray_tpu_torch.util.collective`` group over the workers, the
-gradient allreduce plane); with process workers, its gloo process group
-(A.4b.9).  The port has no ``JaxConfig``.  Sessions are kept per
+gradient allreduce plane); with process workers, a real
+``torch.distributed`` process group over them.  The port has no ``JaxConfig``.  Sessions are kept per
 ``(run_id, rank)``, so concurrent executors in one process never
 cross-wire.
 """
@@ -43,16 +43,18 @@ class TorchConfig(BackendConfig):
     ``setup_torch_process_group``: MASTER_ADDR/PORT + init_process_group
     over TCP).
 
-    When the workers are real OS processes (``worker_process_mode=
-    process``, ROADMAP A.4b.9) this initializes an actual gloo process
-    group across them — ``torch.distributed.all_reduce`` et al. work
-    natively inside the train function, DDP included; NCCL waits for
-    process workers too.  When workers are in-process threads (the
-    port's only mode today) one torch runtime cannot host several
-    ranks, so the workers join a collective group of
-    ``ray_tpu_torch.util.collective`` under ``group_name`` and average
-    gradients with its ``allreduce``, whose reduction runs on the
-    cluster's device.
+    When the workers are OS processes (``worker_process_mode=
+    "process"``) this initializes a process group of ``backend``
+    (gloo by default) across them: ``torch.distributed.all_reduce`` and
+    the rest work natively inside the train function, DDP included.
+    Its rendezvous is a TCP store on rank 0's loopback, as process
+    workers run on their host's node (node hosts, whose workers live on
+    other machines, are ROADMAP A.4b.9b; the reference binds rank 0's
+    host name).  When workers are in-process threads one torch runtime
+    cannot host several ranks, so the workers join a collective group
+    of ``ray_tpu_torch.util.collective`` under ``group_name`` and
+    average gradients with its ``allreduce``, whose reduction runs on
+    the cluster's device.
     """
 
     backend: str = "gloo"
@@ -92,14 +94,13 @@ class TorchConfig(BackendConfig):
 
         def master_endpoint():
             import socket
-            # Rank 0's host serves the TCP rendezvous; port 0 picked
-            # here so the chosen port is free on THAT machine.
+            # Rank 0's process serves the TCP rendezvous on a port free
+            # on its machine.
             s = socket.socket()
-            s.bind(("0.0.0.0", 0))
+            s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
             s.close()
-            host = socket.gethostbyname(socket.gethostname())
-            return host, port
+            return "127.0.0.1", port
 
         host, port = worker_group.execute_single(0, master_endpoint)
         backend, timeout_s = self.backend, self.timeout_s

@@ -524,11 +524,12 @@ def test_wait_with_controlled_completion_matches_jax():
 
 def test_stand_ins_raise_not_implemented():
     """What the port does not have yet raises, naming its item: the
-    native shared-memory object store (A.4b.2b), a runtime env (for a
-    task and for an actor), process workers.  A placement-group
+    native shared-memory object store (A.4b.2b).  A placement-group
     strategy, a stand-in until placement groups were ported (A.4b.3),
-    now runs its task in the group's bundle, and an actor class, a
-    stand-in until actors were ported (A.4b.5), gives an actor."""
+    now runs its task in the group's bundle; an actor class, a stand-in
+    until actors were ported (A.4b.5), gives an actor; a runtime env (for
+    a task and for an actor) and process workers, stand-ins until
+    A.4b.9a, run and return."""
     from ray_tpu_torch._private.config import initialize_config
     from ray_tpu_torch.util import placement_group
     from ray_tpu_torch.util.scheduling_strategies import \
@@ -549,21 +550,30 @@ def test_stand_ins_raise_not_implemented():
         pg = PlacementGroupSchedulingStrategy(group, 0)
         assert ray_tpu_torch.get(
             f.options(scheduling_strategy=pg).remote(1), timeout=10) == 1
-        with pytest.raises(NotImplementedError, match="runtime_env"):
-            f.options(runtime_env={"env_vars": {"A": "1"}}).remote(1)
+        assert ray_tpu_torch.get(f.options(runtime_env={
+            "env_vars": {"A": "1"}}).remote(1), timeout=10) == 1
         actor_class = ray_tpu_torch.remote(
             type("Actor", (), {"ping": lambda self: "pong"}))
-        with pytest.raises(NotImplementedError, match="runtime_env"):
-            actor_class.options(runtime_env={"env_vars": {"A": "1"}}).remote()
+        assert ray_tpu_torch.get(actor_class.options(runtime_env={
+            "env_vars": {"A": "1"}}).remote().ping.remote(),
+            timeout=10) == "pong"
         assert ray_tpu_torch.get(actor_class.remote().ping.remote(),
                                  timeout=10) == "pong"
-        # Without those options the same call runs.
         assert ray_tpu_torch.get(f.remote(big)).nbytes == 200 * 1024
     finally:
         ray_tpu_torch.shutdown()
-    with pytest.raises(NotImplementedError, match="thread workers"):
-        ray_tpu_torch.init(num_cpus=1, device="cpu", _system_config={
-            "worker_process_mode": "process"})
+    ray_tpu_torch.init(num_cpus=1, device="cpu", _system_config={
+        "worker_process_mode": "process"})
+    try:
+        # A worker process cannot import this module: a nested function
+        # is pickled by value.
+        def identity(x):
+            return x
+        assert ray_tpu_torch.get(ray_tpu_torch.remote(identity).remote(
+            big), timeout=60).nbytes == 200 * 1024
+    finally:
+        ray_tpu_torch.shutdown()
+        initialize_config()
     assert not ray_tpu_torch.is_initialized()
 
 

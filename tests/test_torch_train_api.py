@@ -9,8 +9,10 @@ the package's own: the collective-plane backend is ``"jax"`` there and
 ``"torch"`` in the port (ROADMAP C.25), and
 ``test_trainer_jax_spmd_step`` becomes each package's own autograd of
 the same least-squares step.  ``test_torch_backend_real_process_group``
-needs process workers, which wait for A.4b.9; its route is held here
-with a worker group whose workers report other processes.  Then the
+runs on real process workers in ``tests/test_torch_process_workers.py``;
+its route is also held here with a worker group whose workers report
+other processes, and a Trainer on the port's process workers takes it.
+Then the
 port's divergences, each pinned by a test ending in ``_in_the_port``:
 the GPU names (C.24), the default backend (C.25) and checkpoints as host
 forms (C.27).  ``to_tune_trainable``'s trainable runs a sweep through
@@ -346,8 +348,8 @@ class _OtherProcesses:
 def test_process_workers_take_the_process_group_route(name, monkeypatch):
     """``test_torch_backend_real_process_group``'s route: with workers in
     other processes, ``TorchConfig`` sets up a process group instead of
-    the collective plane (both packages; the port's process workers wait
-    for ROADMAP A.4b.9)."""
+    the collective plane (both packages; the real run is in
+    ``tests/test_torch_process_workers.py``)."""
     if name == "ray_tpu" and ray_tpu is None:
         pytest.skip("needs the JAX package")
     cfg = importlib.import_module(f"{name}.train.backend").TorchConfig()
@@ -359,11 +361,25 @@ def test_process_workers_take_the_process_group_route(name, monkeypatch):
 
 
 def test_process_workers_wait_for_a4b9_in_the_port():
-    with pytest.raises(NotImplementedError, match="thread workers only"):
-        ray_tpu_torch.init(num_cpus=2, device="cpu", _system_config={
-            "worker_process_mode": "process"})
+    """A.4b.9a ported the process workers the route waited for: under
+    ``worker_process_mode="process"`` a Trainer's workers are other
+    processes and ``TorchConfig`` joins them by a real gloo group."""
     from ray_tpu_torch._private.config import initialize_config
-    initialize_config()
+    ray_tpu_torch.init(num_cpus=2, device="cpu", _system_config={
+        "worker_process_mode": "process"})
+    try:
+        trainer = ray_tpu_torch.train.Trainer(num_workers=2)
+        trainer.start()
+        try:
+            executor = trainer._executor
+            assert executor._started_config._real_pg
+            pids = executor.worker_group.execute(os.getpid)
+            assert len(set(pids)) == 2 and os.getpid() not in pids
+        finally:
+            trainer.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+        initialize_config()
 
 
 # -- the port's divergences ----------------------------------------------------
